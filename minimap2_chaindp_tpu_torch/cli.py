@@ -6,10 +6,12 @@ Same options as `python -m minimap2_chaindp_tpu.cli` (the shared parser and
 option handling), except `--device`:
 
   cuda  (default) TorchRuntime on cuda:0; exits non-zero without a GPU
-  cpu   the same flow on the CPU, with the kernels' plain versions
+  cpu   the same paths on the CPU, with the kernels' plain versions
   host  HostRuntime, the exact host path
 
 `--mesh` is not supported. There is no silent fallback between devices.
+`-t` sets the threads of index building and of `--device host`; the
+port's runtime maps on two batch threads whatever `-t` is.
 Follows minimap2_chaindp_tpu/cli.py:_main (:334-658) without the JAX
 compile cache, the mesh, the link probe and deferred device init.
 """
@@ -36,7 +38,11 @@ def port_parser():
             act.choices = list(DEVICES)
             act.default = "cuda"
             act.help = ("compute path: cuda (the port's kernels), cpu (the "
-                        "same flow with plain PyTorch) or host")
+                        "same paths with plain PyTorch) or host")
+        elif act.dest == "threads":
+            act.help = ("threads for index building and --device host; "
+                        "under --device cuda|cpu mapping runs two batch "
+                        "threads whatever -t is")
     return p
 
 

@@ -12,7 +12,7 @@ make the flow synchronization-free: bucket routing, overflow fallback and
 the kernel's w1/exc inputs are known before dispatch. Fallbacks (the
 reference's err_flag pattern, map.c:933-944): anchor-count overflow,
 gap-cost exception overflow or avg_qspan < 1.6, and the kernel's skip flag
-route the read to the exact host path. A CUDA error raises.
+leave the read to the runtime's staged path. A CUDA error raises.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ from ..ops.seeds_device import (PAD_HI, SIGN, _collect_dev_pos, _rep_len,
                                 device_index_cached)
 
 # (minimizer-count, anchor-capacity) buckets: a read takes the smallest
-# bucket that fits both counts; past the last one it takes the host path
+# bucket that fits both counts; past the last one it takes the staged path
 M_BUCKETS = (256, 1024, 2048, 4096)
 CAP_BUCKETS = (512, 1024, 2048, 4096, 8192)
 
@@ -118,6 +118,14 @@ def flow_step(dx, qposidx, qpos, qspan8, max_occ, qls, nn, w1, exc, *, cap,
     return xhi, xlo, yhi, ylo, f, p, flag
 
 
+def flow_mode_ok(opt) -> bool:
+    """Whole-run eligibility: single-segment genomic chaining with the
+    gap-cost table domain (the staged path covers the rest)."""
+    bad = (C.MM_F_NO_DIAG | C.MM_F_FOR_ONLY | C.MM_F_REV_ONLY
+           | C.MM_F_SPLICE)
+    return not (opt.flag & bad) and opt.bw < CP.TBL
+
+
 class DeviceFlow:
     """Dispatcher for the fused collect+chain device step on one device
     (`"cuda"`, `"cuda:N"` or `"cpu"`; the CPU runs the plain versions)."""
@@ -132,21 +140,13 @@ class DeviceFlow:
         self.ship_anchors = ship_anchors
         self.dx = device_index_cached(mi, self.device)
 
-    def mode_ok(self) -> bool:
-        """Whole-run eligibility: single-segment genomic chaining with the
-        gap-cost table domain (the host path covers the rest)."""
-        o = self.opt
-        bad = (C.MM_F_NO_DIAG | C.MM_F_FOR_ONLY | C.MM_F_REV_ONLY
-               | C.MM_F_SPLICE)
-        return not (o.flag & bad) and o.bw < CP.TBL
-
     def run(self, units, timers: Timers | None = None) -> dict[int, Chains]:
         """Run eligible units through the fused device step.
 
         `units` is a list of (segs, UnitInfo); eligible units get info.sh
         filled (anchors from the device, host-computed rep_len / mini_pos)
         and an entry in the returned {unit_index: Chains} dict. Ineligible
-        or fallback units are left for the host path."""
+        or fallback units are left for the staged path."""
         timers = timers if timers is not None else Timers()
         opt, mi = self.opt, self.mi
         results: dict[int, Chains] = {}
@@ -170,13 +170,13 @@ class DeviceFlow:
                 continue
             cb = next((c for c in CAP_BUCKETS if n <= c), None)
             if cb is None:
-                continue  # anchor overflow -> host path
+                continue  # anchor overflow -> staged path
             avg = np.float32(span_sum) / np.float32(n)
             if avg < 1.6:  # c_log shortcut domain (chain_pack)
                 continue
             w1, excl = CP.clin_slope_exc(avg)
             if excl is None:
-                continue  # exception overflow -> host path
+                continue  # exception overflow -> staged path
             key = (mb, cb, info.gap_qry, info.gap_ref)
             by_bucket.setdefault(key, []).append((k, w1, excl))
 

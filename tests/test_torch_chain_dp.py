@@ -17,6 +17,10 @@ from minimap2_chaindp_tpu_torch.ops.chain_host import (_v_from_fp,
                                                        split_anchors)
 from minimap2_chaindp_tpu_torch.ops.chain_pack import pack_reads
 
+# the plain versions run loops of small torch ops: an intra-op thread
+# pool in every test worker only spins against the other workers
+torch.set_num_threads(1)
+
 FIELDS = ("xhi", "rpos", "qpos", "span", "sid", "stw")
 
 

@@ -24,8 +24,11 @@ def inputs(tmp_path_factory):
 
 
 def _cli(module, args):
+    # one intra-op thread: the plain versions' small torch ops only spin
+    # against the other test workers
     out = subprocess.run([sys.executable, "-m", module, *args],
-                         capture_output=True, text=True, cwd=ROOT)
+                         capture_output=True, text=True, cwd=ROOT,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
     return out.returncode, out.stdout, out.stderr
 
 

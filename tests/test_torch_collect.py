@@ -23,6 +23,10 @@ from minimap2_chaindp_tpu_torch.models.device_flow import (  # noqa: E402
     derive_queries_pos, host_seed_stats)
 from minimap2_chaindp_tpu_torch.ops import seeds_device as TS  # noqa: E402
 
+# the plain versions run loops of small torch ops: an intra-op thread
+# pool in every test worker only spins against the other workers
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def genome(tmp_path_factory):

@@ -1,6 +1,8 @@
 """The port on the card: the CUDA chain kernel against its plain PyTorch
-version on every kernel case of chip_smoke.py (bit-exact f, p, flag), and
-TorchRuntime on cuda against HostRuntime (byte-identical lines). Skips
+version on every kernel case of chip_smoke.py (bit-exact f, p, flag), the
+ksw2 forward and walk kernels against theirs on chip_smoke.ksw_cases()
+(bit-exact ez rows, step codes, fin), and TorchRuntime on cuda against
+HostRuntime (byte-identical lines) under map-ont and -x splice. Skips
 without a CUDA device. This file imports no JAX, so on a GPU host without
 JAX it runs as
 
@@ -74,3 +76,38 @@ def test_runtime_on_card_matches_host(cuda, tmp_path):
     card = f"cuda:{torch.cuda.current_device()}"
     assert TS.device_index_cached(mi, "cuda") is \
         TS.device_index_cached(mi, card)
+
+
+def test_ksw_kernels_match_ref_on_card(cuda):
+    from chip_smoke import compare_ksw, ksw_cases, ksw_inputs
+    for name, jobs, scoring, splice in ksw_cases():
+        if len(jobs) == 64:
+            continue   # the 64 x 10 kb case: chip_smoke.py only
+        pk, ts, kw = ksw_inputs(jobs, scoring, splice, cuda)
+        assert compare_ksw(name, pk, ts, kw, reps=1)[0] == 0, name
+
+
+def test_splice_runtime_on_card_matches_host(cuda):
+    from minimap2_chaindp_tpu import constants as C
+    from minimap2_chaindp_tpu.index.build import build_index
+    from minimap2_chaindp_tpu.io.fastx import read_fastx, read_frags
+    from minimap2_chaindp_tpu.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu.options import set_opt
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    data = os.path.join(ROOT, "tests", "data")
+    io, mo = set_opt("splice")
+    mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+    recs = list(read_fastx(os.path.join(data, "splice_genome.fa")))
+    mi = build_index([r.name for r in recs], [r.seq for r in recs],
+                     io.w, io.k, io.flag, io.bucket_bits)
+    mo.update(mi)
+    frags = [f for b in read_frags([os.path.join(data, "splice_cdna.fa")],
+                                   mo.mini_batch_size, False) for f in b]
+    want = HostRuntime(mi, mo).map_batch(frags)
+    before = (KE.ksw_forward.launches, KE.ksw_walk.launches)
+    rt = TorchRuntime(mi, mo, device=cuda)
+    assert rt.map_batch(frags) == want
+    assert KE.ksw_forward.launches > before[0]
+    assert KE.ksw_walk.launches > before[1]
+    assert rt.align_exec.n_device > 0

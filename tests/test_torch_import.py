@@ -9,12 +9,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = (
     "minimap2_chaindp_tpu_torch",
     "minimap2_chaindp_tpu_torch.cli",
+    "minimap2_chaindp_tpu_torch.models.batch_align",
     "minimap2_chaindp_tpu_torch.models.device_flow",
     "minimap2_chaindp_tpu_torch.models.runtime",
     "minimap2_chaindp_tpu_torch.ops._build",
     "minimap2_chaindp_tpu_torch.ops.chain_dp",
     "minimap2_chaindp_tpu_torch.ops.chain_host",
     "minimap2_chaindp_tpu_torch.ops.chain_pack",
+    "minimap2_chaindp_tpu_torch.ops.ksw2_ext",
+    "minimap2_chaindp_tpu_torch.ops.ksw2_pack",
     "minimap2_chaindp_tpu_torch.ops.seeds_device",
 )
 
