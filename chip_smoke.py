@@ -53,6 +53,34 @@ KSW_REPLACES = "minimap2_chaindp_tpu/ops/ksw2_pallas.py:238"
 WALK_REPLACES = "minimap2_chaindp_tpu/ops/ksw2_pallas.py:90"
 FIELDS = ("xhi", "rpos", "qpos", "span", "sid", "stw")
 
+# The card's peaks for the kernels' bounds: NVIDIA's H100 SXM data sheet
+# gives 3.35 TB/s of device memory; the integer rate is 132 SMs x 64 INT32
+# lanes x 1.98 GHz (the Hopper white paper's SM and the clock behind the
+# sheet's 67 TFLOP/s of fp32: 132 x 128 x 2 x 1.98 GHz), one operation a
+# lane a cycle.
+HBM_BYTES_S = 3.35e12
+INT32_OPS_S = 132 * 64 * 1.98e9
+# Integer operations per unit of work: what the function needs, not what a
+# kernel spends. A cell of the ksw2 recurrence on int8 lanes, as the
+# reference's SIMD build does it (no sign extension: that is a cost of int8
+# kept in int32 registers), in extd2 mode: the score of the base pair 6 (two
+# compares with N, an or, a compare, two selects); a, b, a2, b2 4 sums; the
+# five-way maximum with its origin 4 x (compare, select, maximum) = 12; the
+# match clamp 1; u and v 2; z - q, z - q2 and the four continuation scores
+# 6; each continuation (compare, select, subtract the gap open, select the
+# flag, or it in) 4 x 5 = 20; the exact row H and its running maximum with
+# its lane 4: 55. exts2 has no second insertion state (one sum, one way of
+# the maximum, one score, one continuation: -10), no clamp (-1), and splits
+# and adds the donor and acceptor signals (+3): 47. A job with the
+# approximate maximum keeps no H row (-4); a score-only job keeps no origin
+# and no flags (-16, exts2 -12). A walk step: the band of its row, the
+# address, the state machine, i and j. A candidate pair in csrc/chain_dp.cu.
+KSW_OPS_PER_CELL = {False: 55, True: 47}      # extd2, exts2
+KSW_OPS_H_ROW = 4
+KSW_OPS_CIGAR = {False: 16, True: 12}
+WALK_OPS_PER_STEP = 24
+CHAIN_OPS_PER_PAIR = 40
+
 # the end-to-end workloads: one human chromosome's worth of reference,
 # 1000 ONT-like reads (phase 4), 2000 spliced cDNA reads from gene loci
 # patched into a copy of it (phase 5) and 5000 short read pairs (phase 6),
@@ -96,7 +124,7 @@ def phase_env():
         f"{torch.version.cuda}; device {torch.cuda.get_device_name(0)} x"
         f"{torch.cuda.device_count()}; nvcc: "
         f"{nv.stdout.strip().splitlines()[-1] if nv.stdout else 'n/a'}")
-    from minimap2_chaindp_tpu import native
+    from minimap2_chaindp_tpu_torch import native
     t0 = time.perf_counter()
     ksw = native.load_ksw() is not None
     epi = native.available()
@@ -167,8 +195,8 @@ def _pack(batch, max_dist_x, max_n):
 
 def kernel_cases():
     """(name, numpy inputs, kwargs) for the listed kernel checks."""
-    from minimap2_chaindp_tpu.options import set_opt
-    from minimap2_chaindp_tpu.utils.synth import synth_batch
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils.synth import synth_batch
     _, ont = set_opt("map-ont")
     _, sr = set_opt("sr")
     _, spl = set_opt("splice")
@@ -229,10 +257,35 @@ def _time_ms(fn, reps: int, warm: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound(n_bytes, n_ops):
+    """(bound ms, what sets it): the larger of the bytes over the memory
+    rate and the operations over the integer rate."""
+    t_b, t_o = n_bytes / HBM_BYTES_S * 1e3, n_ops / INT32_OPS_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def chain_bound(ts, kw):
+    """The chain kernel's bound on these inputs: every input read once, f,
+    p and flag written once; one unit of work per candidate pair (j in
+    [stw[i], i) for each anchor i < n: the kernel scores the whole
+    window). Returns (bound ms, by, pairs, anchors of the longest read)."""
+    import torch
+    stw, nn = ts[5], ts[6][:, 0].long()
+    max_n = stw.shape[1]
+    i = torch.arange(max_n, device=stw.device)[None, :]
+    live = i < nn[:, None]
+    pairs = int(((i - stw.clamp(min=0)) * live).sum())
+    n_bytes = sum(t.numel() * t.element_size() for t in ts) \
+        + 2 * stw.numel() * 4 + ts[6].numel() * 4
+    ms, by = _bound(n_bytes, pairs * CHAIN_OPS_PER_PAIR)
+    return ms, by, pairs, int(nn.max())
+
+
 def compare_kernel(name, ts, kw, reps=20, phase=3):
     """Kernel vs plain version on the same card tensors: bit-exact f, p and
-    flag, then CUDA-event times. Returns (max_abs_err, ms, plain_ms,
-    n_flagged)."""
+    flag, then CUDA-event times and the kernel's bound on these inputs.
+    Returns dict(err, ms, plain_ms, n_flag, bound_ms, bound_by,
+    step_ns)."""
     import torch
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
     before = TD.chain_scores_batch.launches
@@ -251,9 +304,15 @@ def compare_kernel(name, ts, kw, reps=20, phase=3):
     plain_ms = _time_ms(lambda: TD.chain_scores_batch_ref(*ts, **kw), 1,
                         warm=False)
     n_flag = int(got[2][:, 0].sum())
+    bound_ms, by, pairs, longest = chain_bound(ts, kw)
+    step_ns = ms * 1e6 / max(longest, 1)
     log(f"phase {phase} {name}: bit-exact (f, p, flag; {n_flag} flagged); "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
-    return err, ms, plain_ms, n_flag
+        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; bound "
+        f"{bound_ms:.4f} ms by {by} ({pairs} candidate pairs), share "
+        f"{bound_ms / ms:.1%}; longest read {longest} anchors, "
+        f"{step_ns:.1f} ns per anchor")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, n_flag=n_flag,
+                bound_ms=bound_ms, bound_by=by, step_ns=step_ns)
 
 
 def _mutate_codes(rng, seq, sub=0.08, ind=0.04):
@@ -275,7 +334,7 @@ def _mutate_codes(rng, seq, sub=0.08, ind=0.04):
 
 
 def _ext_jobs(rng, n, tlen_rng, ws=(25, 100, 751), zdrops=(100, 400)):
-    from minimap2_chaindp_tpu.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
     flags = (0, K.KSW_EZ_APPROX_MAX, K.KSW_EZ_EXTZ_ONLY,
              K.KSW_EZ_EXTZ_ONLY | K.KSW_EZ_RIGHT,
              K.KSW_EZ_EXTZ_ONLY | K.KSW_EZ_RIGHT | K.KSW_EZ_REV_CIGAR,
@@ -312,8 +371,8 @@ def _spliced_job(rng, flag, n_exons, exon=60, intron=120, err=0.05):
 def ksw_cases():
     """(name, jobs, scoring, splice) for the ksw kernel checks; scoring is
     (q, e, q2, e2 or noncan, a, b) from the presets."""
-    from minimap2_chaindp_tpu.ops import ksw2 as K
-    from minimap2_chaindp_tpu.options import set_opt
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.options import set_opt
 
     def gaps(preset, splice=False):
         _, o = set_opt(preset)
@@ -371,18 +430,19 @@ def ksw_cases():
 
 
 def ksw_inputs(jobs, scoring, splice, device):
-    """pack_jobs' arrays as tensors on `device` plus the launch keywords."""
+    """pack_jobs' arrays as tensors on `device` plus the forward wrapper's
+    keywords (the launch groups of ksw2_pack.launch_plan among them)."""
     import torch
-    from minimap2_chaindp_tpu.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
     from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
     q, e, q2, e2n, a, b = scoring
     pk = KPK.pack_jobs(jobs, splice=splice, noncan=e2n if splice else 0)
     qq, ee, qq2, ee2, lt, ld = KPK.gap_params(q, e, q2, 0 if splice else e2n,
                                               splice)
     mat = K.gen_simple_mat(5, a, b)
-    ts = {k: torch.from_numpy(pk[k]).to(device)
-          for k in ("tseq", "qrev", "dac", "meta", "poff")}
-    kw = dict(scoring=(qq, ee, qq2, ee2, int(mat[0]), int(mat[1]),
+    from minimap2_chaindp_tpu_torch.ops.ksw2_ext import TENSOR_KEYS
+    ts = {k: torch.from_numpy(pk[k]).to(device) for k in TENSOR_KEYS}
+    kw = dict(groups=pk["groups"], scoring=(qq, ee, qq2, ee2, int(mat[0]), int(mat[1]),
                        -ee if splice else -ee2, lt, ld),
               splice=splice, p_bytes=pk["p_bytes"], t_total=pk["t_total"],
               band_max=pk["band_max"], rows_max=pk["rows_max"])
@@ -402,74 +462,195 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
+def ksw_bounds(pk, ez_h, splice):
+    """The forward and walk kernels' bounds on these inputs. Forward work:
+    the cells of the live band [st0, en0] of every row a job computes (all
+    its rows, or the rows up to its maximum where it z-dropped: the least
+    it can have computed), each at the operations its job's mode needs;
+    bytes: every input once, one backtrack byte per cell of a job with a
+    CIGAR, the ez rows. Walk: one byte of p in and one code out per step.
+    Returns ((fwd ms, by, cells), (walk ms, by, steps), steps of the
+    longest walk)."""
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
+    meta = pk["meta"]
+    cells = n_ops = p_out = 0
+    for j in range(len(meta)):
+        ql, tl, w = (int(meta[j, c]) for c in
+                     (KPK.M_QLEN, KPK.M_TLEN, KPK.M_W))
+        rows = ql + tl - 1
+        if ez_h[j, KPK.C_ZDROP]:
+            rows = min(rows, max(int(ez_h[j, KPK.C_MAX_T])
+                                 + int(ez_h[j, KPK.C_MAX_Q]) + 1, 1))
+        r = np.arange(rows, dtype=np.int64)
+        st0 = np.maximum(0, r - ql + 1)
+        en0 = np.minimum(tl - 1, r)
+        if not splice:
+            st0 = np.maximum(st0, (r - w + 1) >> 1)
+            en0 = np.minimum(en0, (r + w) >> 1)
+        n = int(np.maximum(en0 - st0 + 1, 0).sum())
+        per_cell = KSW_OPS_PER_CELL[splice]
+        if meta[j, KPK.M_APPROX]:
+            per_cell -= KSW_OPS_H_ROW
+        if meta[j, KPK.M_NCOL]:
+            p_out += n
+        else:
+            per_cell -= KSW_OPS_CIGAR[splice]
+        cells += n
+        n_ops += n * per_cell
+    n_in = sum(pk[k].nbytes for k in ("tseq", "qrev", "dac", "meta", "poff",
+                                      "order"))
+    fwd = _bound(n_in + p_out + ez_h.nbytes, n_ops)
+    steps = ez_h[:, KPK.C_FIN_K].astype(np.int64)
+    walk = _bound(2 * int(steps.sum()) + meta.nbytes + ez_h.nbytes,
+                  int(steps.sum()) * WALK_OPS_PER_STEP)
+    return fwd + (cells,), walk + (int(steps.sum()),), int(steps.max())
+
+
+def _check_walk(name, pk, ez_w, ops, ez_wr, ops_ref):
+    """Walk outputs against the plain version's: fin (i, j, k) and every
+    step code. Returns the worst difference (0)."""
+    import torch
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
+    fin = slice(KPK.C_FIN_I, KPK.C_FIN_K + 1)
+    err = int((ez_w[:, fin].long() - ez_wr[:, fin].long()).abs().max())
+    check(torch.equal(ez_w, ez_wr), f"{name}: walk fin (i, j, k) differs "
+          f"from the plain version (max abs err {err})")
+    ops_h, ops_rh = ops.cpu().numpy(), ops_ref.cpu().numpy()
+    ez_h = ez_w.cpu().numpy()
+    for j, o in enumerate(pk["meta"][:, KPK.M_OPOFF]):
+        k = int(ez_h[j, KPK.C_FIN_K])
+        a, b = ops_h[o:o + k].astype(int), ops_rh[o:o + k].astype(int)
+        if not (a == b).all():
+            check(False, f"{name}: job {j} walk step codes differ from the "
+                  f"plain version (max abs err {int(abs(a - b).max())})")
+    return err
+
+
+def _in_turns(fns, rounds):
+    """Every callable of `fns` (name -> callable) once a round, in turn,
+    for `rounds` rounds after a warm-up round, each call between CUDA
+    events of its own: {name: median ms}. Versions timed this way share
+    whatever else the card and the host do during the run."""
+    import statistics
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(_timed(fn)[1])
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
 def compare_ksw(name, pk, ts, kw, reps=5, phase=3):
-    """ksw forward kernel and walk kernel against their plain versions on
-    the same card tensors: bit-exact ez rows, step codes and fin (i, j, k),
-    and CUDA-event times (the plain versions timed on their one comparison
-    run). Returns (max_abs_err, fwd ms, fwd plain ms, walk ms, walk plain
-    ms)."""
+    """The ksw forward kernel (as the wrapper plans its launches, and then
+    every variant that holds all these jobs, forced) and the walk kernel
+    against their plain versions on the same card tensors: bit-exact ez
+    rows, step codes and fin (i, j, k); CUDA-event times (the planned
+    launches and the forced variants in turns, `reps` rounds, 11 where a
+    call takes under 5 ms; the plain versions on their one comparison run)
+    and the bounds. Returns a dict: err, ms, plain_ms, walk_ms,
+    walk_plain_ms, variant_ms, bound_ms, bound_by, step_ns, walk_bound_ms,
+    walk_bound_by, walk_step_ns."""
     import torch
     from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
     from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
-    args = [ts[k] for k in ("tseq", "qrev", "dac", "meta", "poff")]
+    args = [ts[k] for k in KE.TENSOR_KEYS]
     wkw = dict(splice=kw["splice"], ops_total=pk["ops_total"])
-    before = (KE.ksw_forward.launches, KE.ksw_walk.launches)
+    planned = [g["variant"] for g in kw["groups"]]
+    before = (dict(KE.ksw_forward.by_variant), KE.ksw_walk.launches)
     p, ez = KE.ksw_forward(*args, **kw)
     ez_w = ez.clone()
-    ops = KE.ksw_walk(p, ts["poff"], ts["meta"], ez_w, **wkw)
+    ops = KE.ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez_w, **wkw)
     torch.cuda.synchronize()
-    check((KE.ksw_forward.launches, KE.ksw_walk.launches)
-          == (before[0] + 1, before[1] + 1),
-          f"{name}: the launch counters did not move")
+    check(all(KE.ksw_forward.by_variant[v] == before[0][v]
+              + planned.count(v) for v in KPK.VARIANTS)
+          and KE.ksw_walk.launches == before[1] + 1,
+          f"{name}: the launch counters did not move with the launches")
     (_p_ref, ez_ref), plain_ms = _timed(
-        lambda: KE.ksw_forward_ref(*args, **kw))
+        lambda: KE.ksw_forward_ref(*args[:5], **{
+            k: v for k, v in kw.items() if k != "groups"}))
     ez_wr = ez.clone()
     ops_ref, walk_plain = _timed(lambda: KE.ksw_walk_ref(
         p, ts["poff"], ts["meta"], ez_wr, **wkw))
     err = int((ez.long() - ez_ref.long()).abs().max())
     check(torch.equal(ez, ez_ref), f"{name}: kernel ez rows differ from "
           f"the plain version (max abs err {err})")
-    fin = slice(KPK.C_FIN_I, KPK.C_FIN_K + 1)
-    err_w = int((ez_w[:, fin].long() - ez_wr[:, fin].long()).abs().max())
-    check(torch.equal(ez_w, ez_wr), f"{name}: walk fin (i, j, k) differs "
-          f"from the plain version (max abs err {err_w})")
-    ops_h, ops_rh = ops.cpu().numpy(), ops_ref.cpu().numpy()
+    err = max(err, _check_walk(name, pk, ez_w, ops, ez_wr, ops_ref))
+    walk_ms = _time_ms(lambda: KE.ksw_walk(
+        p, ts["poff"], ts["meta"], ts["order"], ez.clone(), **wkw), reps)
+    # every variant that can hold the whole launch, forced
+    runs = {"planned": lambda: KE.ksw_forward(*args, **kw)}
+    for v in KPK.VARIANTS:
+        try:
+            order, groups = KPK.launch_plan(pk["meta"], force=v)
+        except ValueError:
+            continue      # a job's rows do not fit this variant
+        order_t = torch.from_numpy(order).to(ts["meta"].device)
+        fkw = dict(kw, groups=groups)
+        n0 = KE.ksw_forward.by_variant[v]
+        p_v, ez_v = KE.ksw_forward(*args[:5], order_t, **fkw)
+        ez_vw = ez_v.clone()
+        ops_v = KE.ksw_walk(p_v, ts["poff"], ts["meta"], ts["order"], ez_vw,
+                            **wkw)
+        torch.cuda.synchronize()
+        check(KE.ksw_forward.by_variant[v] == n0 + 1,
+              f"{name}: the {v} variant's counter did not move")
+        e_v = int((ez_v.long() - ez_ref.long()).abs().max())
+        check(torch.equal(ez_v, ez_ref), f"{name}: the {v} variant's ez "
+              f"rows differ from the plain version (max abs err {e_v})")
+        err = max(err, e_v,
+                  _check_walk(f"{name} [{v}]", pk, ez_vw, ops_v, ez_wr,
+                              ops_ref))
+        runs[v] = (lambda o=order_t, k=fkw:
+                   KE.ksw_forward(*args[:5], o, **k))
+        del p_v
+    quick = _timed(runs["planned"])[1] < 5
+    variant_ms = _in_turns(runs, 11 if quick and reps >= 3 else reps)
+    ms = variant_ms.pop("planned")
     ez_h = ez_w.cpu().numpy()
-    n_steps = 0
-    for j, o in enumerate(pk["meta"][:, KPK.M_OPOFF]):
-        k = int(ez_h[j, KPK.C_FIN_K])
-        n_steps += k
-        a, b = ops_h[o:o + k].astype(int), ops_rh[o:o + k].astype(int)
-        if not (a == b).all():
-            err_w = max(err_w, int(abs(a - b).max()))
-            check(False, f"{name}: job {j} walk step codes differ from the "
-                  f"plain version (max abs err {err_w})")
-    ms = _time_ms(lambda: KE.ksw_forward(*args, **kw), reps)
-    walk_ms = _time_ms(lambda: KE.ksw_walk(p, ts["poff"], ts["meta"],
-                                           ez.clone(), **wkw), reps)
-    cells = int((pk["meta"][:, KPK.M_QLEN].astype(np.int64)
-                 * pk["meta"][:, KPK.M_TLEN]).sum())
-    log(f"phase {phase} ksw {name}: {len(pk['meta'])} jobs, {n_steps} walk "
-        f"steps, bit-exact (ez, step codes, fin); forward {ms:.3f} ms "
-        f"(plain {plain_ms:.1f} ms), walk {walk_ms:.3f} ms (plain "
-        f"{walk_plain:.1f} ms); {cells} q x t cells, {pk['p_bytes']} p "
-        f"bytes, {pk['rows_max']} rows, band {kw['band_max']}")
-    return max(err, err_w), ms, plain_ms, walk_ms, walk_plain
+    (b_ms, b_by, cells), (wb_ms, wb_by, n_steps), longest = ksw_bounds(
+        pk, ez_h, kw["splice"])
+    step_ns = ms * 1e6 / max(pk["rows_max"], 1)
+    walk_step_ns = walk_ms * 1e6 / max(longest, 1)
+    log(f"phase {phase} ksw {name}: {len(pk['meta'])} jobs in launches "
+        f"{[(g['variant'], g['ring'], g['threads'], g['count']) for g in kw['groups']]}"
+        f", bit-exact (ez, step codes, fin) as planned and forced "
+        f"{sorted(variant_ms)}; forward {ms:.3f} ms (plain {plain_ms:.1f} "
+        f"ms; forced, in turns with it, " + ", ".join(
+            f"{v} {t:.3f}" for v, t in variant_ms.items())
+        + f" ms), bound {b_ms:.4f} ms by {b_by} ({cells} live cells), "
+        f"share {b_ms / ms:.1%}, longest job {pk['rows_max']} rows, "
+        f"{step_ns:.1f} ns per row; walk {walk_ms:.3f} ms (plain "
+        f"{walk_plain:.1f} ms), bound {wb_ms:.5f} ms by {wb_by} ({n_steps} "
+        f"steps), share {wb_ms / walk_ms:.1%}, longest walk {longest} "
+        f"steps, {walk_step_ns:.1f} ns per step; "
+        f"{pk['p_bytes']} p bytes, band {kw['band_max']}")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, walk_ms=walk_ms,
+                walk_plain_ms=walk_plain, variant_ms=variant_ms,
+                bound_ms=b_ms, bound_by=b_by, step_ns=step_ns,
+                walk_bound_ms=wb_ms, walk_bound_by=wb_by,
+                walk_step_ns=walk_step_ns)
 
 
 def phase_kernels():
     import torch
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
     worst, flagged = 0, 0
     for name, arrs, kw in kernel_cases():
         ts = [torch.from_numpy(a).cuda() for a in arrs]
-        err, _ms, _plain, n_flag = compare_kernel(name, ts, kw)
-        worst = max(worst, err)
+        res = compare_kernel(name, ts, kw)
+        worst = max(worst, res["err"])
         if "flagged" in name:
-            flagged = n_flag
+            flagged = res["n_flag"]
     check(flagged > 0, "the flagged corpus flagged no read")
+    forced = set()
     for name, jobs, scoring, splice in ksw_cases():
         pk, ts, kw = ksw_inputs(jobs, scoring, splice, "cuda")
-        worst = max(worst, compare_ksw(name, pk, ts, kw)[0])
+        res = compare_ksw(name, pk, ts, kw)
+        worst = max(worst, res["err"])
+        forced |= set(res["variant_ms"])
+    check(forced == set(KPK.VARIANTS), "phase 3 did not launch every "
+          f"forward variant: {sorted(forced)}")
     return worst
 
 
@@ -489,13 +670,12 @@ def _cached(path, make, *more):
 
 def phase_e2e():
     import torch
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    import genome_scale as G
-    from minimap2_chaindp_tpu import constants as C
-    from minimap2_chaindp_tpu.index.build import build_index
-    from minimap2_chaindp_tpu.io.fastx import read_fastx, read_frags
-    from minimap2_chaindp_tpu.models.host_runtime import HostRuntime
-    from minimap2_chaindp_tpu.options import set_opt
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx, read_frags
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
     from minimap2_chaindp_tpu_torch.models import device_flow as DF
     from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
@@ -592,12 +772,11 @@ def phase_e2e():
     check(launches > 0, "the main path launched no chain kernel")
     check(c["device_reads"] >= 0.9 * n_reads,
           f"only {c['device_reads']} of {n_reads} reads chained on the card")
-    err, ms, plain_ms, _ = compare_kernel(
+    res = compare_kernel(
         "main-path input R={} max_n={}".format(
             biggest["args"][1].shape[0], biggest["kw"]["max_n"]),
         biggest["args"], biggest["kw"], reps=5, phase=4)
-    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
-                ref=ref)
+    return dict(res, launches=launches, ref=ref)
 
 
 # ------------------------------------------------------------- phases 5, 6
@@ -626,7 +805,7 @@ def _write_spliced(ref, out_ref, out_reads, seed=7):
     TRANSCRIPTS cDNA reads from them (each gene's full transcript and one
     that skips an internal exon) at SPLICE_ERR error, half reverse
     complemented. The tools/diff_sweep.py:86-120 idea at genome scale."""
-    from minimap2_chaindp_tpu.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
     rng = np.random.default_rng(seed)
     recs = [(r.name, bytearray(r.seq.encode())) for r in read_fastx(ref)]
     per = -(-GENES // len(recs))
@@ -673,7 +852,7 @@ def _write_spliced(ref, out_ref, out_reads, seed=7):
 def _write_pairs(ref, out1, out2, seed=11):
     """PAIRS read pairs of PAIR_LEN bp in FR orientation from fragments of
     FRAG_LEN bp, at 1% substitutions and indels."""
-    from minimap2_chaindp_tpu.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
     rng = np.random.default_rng(seed)
     recs = [(r.name, r.seq) for r in read_fastx(ref)]
     comp = str.maketrans("ACGT", "TGCA")
@@ -690,10 +869,10 @@ def _write_pairs(ref, out1, out2, seed=11):
 
 
 def _index(ref, preset):
-    from minimap2_chaindp_tpu import constants as C
-    from minimap2_chaindp_tpu.index.build import build_index
-    from minimap2_chaindp_tpu.io.fastx import read_fastx
-    from minimap2_chaindp_tpu.options import set_opt
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.options import set_opt
     io, mo = set_opt(preset)
     mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR          # -a
     names, seqs = [], []
@@ -714,7 +893,7 @@ def _staged_run(phase, mi, mo, batches):
     input of each, the largest ksw launch input, the times and the peak
     device memory."""
     import torch
-    from minimap2_chaindp_tpu.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
     from minimap2_chaindp_tpu_torch.models import runtime as RT
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
     from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
@@ -729,7 +908,8 @@ def _staged_run(phase, mi, mo, batches):
         .map_batch(warm)
     torch.cuda.synchronize()
     rt = RT.TorchRuntime(mi, mo, device="cuda", n_threads=THREADS)
-    rec = dict(modes={}, chain_in={}, biggest=None, cells=-1)
+    rec = dict(modes={}, chain_in={}, biggest=None, cells=-1,
+               planned=set())
     real_chain, real_pack = RT.chain_scores_batch, KE.pack_jobs
 
     def chain(*a, **kw):
@@ -747,10 +927,12 @@ def _staged_run(phase, mi, mo, batches):
                      * pk["meta"][:, 1]).sum())
         if cells > rec["cells"]:
             rec.update(cells=cells, biggest=(jobs, splice))
+        rec["planned"] |= {g["variant"] for g in pk["groups"]}
         return pk
     RT.chain_scores_batch, KE.pack_jobs = chain, pack
     TD.chain_scores_batch.launches = 0
     KE.ksw_forward.launches = KE.ksw_walk.launches = 0
+    KE.ksw_forward.by_variant = dict.fromkeys(KE.ksw_forward.by_variant, 0)
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
@@ -761,6 +943,7 @@ def _staged_run(phase, mi, mo, batches):
         RT.chain_scores_batch, KE.pack_jobs = real_chain, real_pack
     rec.update(chain=TD.chain_scores_batch.launches,
                ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches,
+               by_variant=dict(KE.ksw_forward.by_variant),
                peak=torch.cuda.max_memory_allocated(), t_host=t_host,
                t_port=t_port)
     n = len(frags)
@@ -778,7 +961,8 @@ def _staged_run(phase, mi, mo, batches):
         f"-t {THREADS} (fragments/s)")
     log(f"phase {phase} extension jobs: {ex.n_device} on the card, "
         f"{ex.n_native} native, {ex.n_host} numpy model; ksw forward "
-        f"launches {rec['ksw']}, walk launches {rec['walk']} (p budget "
+        f"launches {rec['ksw']} {rec['by_variant']}, walk launches "
+        f"{rec['walk']} (p budget "
         f"{KE.P_BUDGET} B per launch); chain kernel launches "
         f"{rec['chain']} {rec['modes']}")
     log(f"phase {phase} port stages (host wall clock): "
@@ -786,6 +970,9 @@ def _staged_run(phase, mi, mo, batches):
     log(f"phase {phase} device memory: max_memory_allocated {rec['peak']} B")
     check(rec["ksw"] > 0 and rec["walk"] > 0,
           f"phase {phase}: the ksw kernels were not launched")
+    for v in sorted(rec["planned"]):
+        check(rec["by_variant"][v] > 0, f"phase {phase}: the waves held "
+              f"jobs for the {v} forward variant, which never launched")
     rec.update(jobs=n_jobs, jobs_device=ex.n_device)
     return host_lines, port_lines, rt, rec
 
@@ -793,21 +980,19 @@ def _staged_run(phase, mi, mo, batches):
 def _main_path_kernels(phase, rec, scoring):
     """Check and time the chain kernel on the largest input of each mode
     the path ran, and the ksw kernels on the largest launch the path
-    made. Returns rec with the chain's worst error and the ksw numbers
-    (err, ms, plain_ms, walk_ms, walk_plain_ms)."""
+    made. Returns rec with the chain's worst error and compare_ksw's
+    numbers."""
     chain_err = 0
     for mode, (_size, args, kw) in sorted(rec["chain_in"].items()):
-        err, _ms, _plain, _ = compare_kernel(
+        res = compare_kernel(
             f"main-path {mode} input R={args[1].shape[0]} "
             f"max_n={kw['max_n']}", args, kw, reps=3, phase=phase)
-        chain_err = max(chain_err, err)
+        chain_err = max(chain_err, res["err"])
     jobs, splice = rec["biggest"]
     pk, ts, kw = ksw_inputs(jobs, scoring, splice, "cuda")
-    err, ms, plain, wms, wplain = compare_ksw(
-        f"main-path input ({len(jobs)} jobs)", pk, ts, kw, reps=3,
-        phase=phase)
-    return dict(rec, chain_err=chain_err, err=err, ms=ms, plain_ms=plain,
-                walk_ms=wms, walk_plain_ms=wplain)
+    res = compare_ksw(f"main-path input ({len(jobs)} jobs)", pk, ts, kw,
+                      reps=3, phase=phase)
+    return dict(rec, **res, chain_err=chain_err)
 
 
 def phase_splice(ref):
@@ -816,7 +1001,7 @@ def phase_splice(ref):
                         f"_genes{GENES}_s7.fa")
     reads = os.path.join(SMOKE_DIR, f"transcripts_{TRANSCRIPTS}_s7.fa")
     _cached(sref, lambda p, q: _write_spliced(ref, p, q), reads)
-    from minimap2_chaindp_tpu.io.fastx import read_frags
+    from minimap2_chaindp_tpu_torch.io.fastx import read_frags
     mi, mo = _index(sref, "splice")
     log(f"phase 5 inputs: {GENES} gene loci patched into the genome, "
         f"{TRANSCRIPTS} transcripts at {SPLICE_ERR:.0%} error; splice "
@@ -841,7 +1026,7 @@ def phase_paired(ref):
     r1 = os.path.join(SMOKE_DIR, f"pairs_{PAIRS}_s11_1.fa")
     r2 = os.path.join(SMOKE_DIR, f"pairs_{PAIRS}_s11_2.fa")
     _cached(r1, lambda p, q: _write_pairs(ref, p, q), r2)
-    from minimap2_chaindp_tpu.io.fastx import read_frags
+    from minimap2_chaindp_tpu_torch.io.fastx import read_frags
     mi, mo = _index(ref, "sr")
     log(f"phase 6 inputs: {PAIRS} pairs of 2 x {PAIR_LEN} bp; sr index "
         f"{len(mi.keys)} keys ({time.perf_counter() - t0:.1f} s)")
@@ -883,14 +1068,30 @@ def main() -> int:
          "launches": e2e["launches"] + spl["chain"] + pe["chain"],
          "max_abs_err": max(worst, e2e["err"], spl["chain_err"],
                             pe["chain_err"]), "ms": e2e["ms"],
-         "plain_ms": e2e["plain_ms"]},
+         "plain_ms": e2e["plain_ms"], "bound_ms": e2e["bound_ms"],
+         "bound_by": e2e["bound_by"], "library_ms": None,
+         "step_ns": e2e["step_ns"]},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,
          "replaces": KSW_REPLACES, "launches": spl["ksw"] + pe["ksw"],
-         "max_abs_err": err, "ms": spl["ms"], "plain_ms": spl["plain_ms"]},
+         "max_abs_err": err, "ms": spl["ms"], "plain_ms": spl["plain_ms"],
+         "bound_ms": spl["bound_ms"], "bound_by": spl["bound_by"],
+         "library_ms": None, "step_ns": spl["step_ns"],
+         "variant_ms": spl["variant_ms"],
+         "launches_by_variant": {v: spl["by_variant"][v]
+                                 + pe["by_variant"][v]
+                                 for v in spl["by_variant"]},
+         "ms_phase6": pe["ms"], "bound_ms_phase6": pe["bound_ms"],
+         "step_ns_phase6": pe["step_ns"],
+         "variant_ms_phase6": pe["variant_ms"]},
         {"name": "ksw2_walk", "route": "cuda", "source": KSW_SOURCE,
          "replaces": WALK_REPLACES, "launches": spl["walk"] + pe["walk"],
          "max_abs_err": err, "ms": spl["walk_ms"],
-         "plain_ms": spl["walk_plain_ms"]}]}))
+         "plain_ms": spl["walk_plain_ms"],
+         "bound_ms": spl["walk_bound_ms"],
+         "bound_by": spl["walk_bound_by"], "library_ms": None,
+         "step_ns": spl["walk_step_ns"], "ms_phase6": pe["walk_ms"],
+         "bound_ms_phase6": pe["walk_bound_ms"],
+         "step_ns_phase6": pe["walk_step_ns"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 
   python -m minimap2_chaindp_tpu_torch.cli [options] target.fa query.fa ...
 
-Same options as `python -m minimap2_chaindp_tpu.cli` (the shared parser and
-option handling), except `--device`:
+Same options as `python -m minimap2_chaindp_tpu.cli` (`build_parser`,
+`apply_args`, `_si` and `_run_debug_sequential` are copied from
+minimap2_chaindp_tpu/cli.py:27-314), except `--device`:
 
   cuda  (default) TorchRuntime on cuda:0; exits non-zero without a GPU
   cpu   the same paths on the CPU, with the kernels' plain versions
@@ -17,44 +18,318 @@ compile cache, the mesh, the link probe and deferred device init.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 from collections import deque
 
-from minimap2_chaindp_tpu import constants as C
-from minimap2_chaindp_tpu.cli import (_run_debug_sequential, apply_args,
-                                      build_parser)
-from minimap2_chaindp_tpu.io.fastx import read_fastx, read_frags
-from minimap2_chaindp_tpu.io.output import parse_rg_id, write_sam_hdr
-from minimap2_chaindp_tpu.options import check_opt, set_opt
+from . import constants as C
+from .io.fastx import read_fastx, read_frags
+from .io.output import parse_rg_id, write_sam_hdr
+from .options import IndexOptions, MapOptions, check_opt, set_opt
 
 DEVICES = ("cuda", "cpu", "host")
+VERSION = "0.1.0 (minimap2 2.10-r761 compatible)"
 
 
-def port_parser():
-    """The shared parser with `--device cuda|cpu|host` (default cuda)."""
-    p = build_parser()
-    for act in p._actions:
-        if act.dest == "device":
-            act.choices = list(DEVICES)
-            act.default = "cuda"
-            act.help = ("compute path: cuda (the port's kernels), cpu (the "
-                        "same paths with plain PyTorch) or host")
-        elif act.dest == "threads":
-            act.help = ("threads for index building and --device host; "
-                        "under --device cuda|cpu mapping runs two batch "
-                        "threads whatever -t is")
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="mm2tpu", add_help=True,
+        description="minimap2-compatible long/short-read aligner on "
+                    "PyTorch and CUDA")
+    a = p.add_argument
+    # indexing
+    a("-H", dest="hpc", action="store_true", help="use homopolymer-compressed k-mer")
+    a("-k", type=int, default=None, help="k-mer size")
+    a("-w", type=int, default=None, help="minimizer window size")
+    a("-I", dest="batch_size", default=None, help="split index for every ~NUM bases")
+    a("-d", dest="dump_index", default=None, help="dump index to file")
+    # mapping
+    a("-f", dest="mid_occ_frac", type=float, default=None)
+    a("-g", dest="max_gap", default=None)   # _si: k/m/g ok
+    a("-G", dest="max_intron_len", default=None)
+    a("-F", dest="max_frag_len", default=None)
+    a("-r", dest="bw", default=None)
+    a("-n", "--min-count", dest="min_cnt", type=int, default=None)
+    a("-m", "--min-chain-score", dest="min_chain_score", type=int,
+      default=None)
+    a("-X", dest="ava", action="store_true", help="skip self and dual mappings")
+    a("-D", "--no-self", dest="no_diag", action="store_true",
+      help="skip self mappings")
+    a("-P", "--all-chain", dest="all_chains", action="store_true",
+      help="retain all chains")
+    a("-M", dest="mask_level", type=float, default=None)
+    a("-C", "--cost-non-gt-ag", dest="noncan", type=int, default=None,
+      help="cost of non-canonical splicing sites")
+    a("-Y", dest="softclip2", action="store_true",
+      help="use soft clipping for supplementary alignments")
+    a("-y", dest="copy_comment", action="store_true")
+    a("-v", dest="verbose", type=int, default=None)
+    a("-2", dest="io_threads2", action="store_true",
+      help="use two IO threads (always on: pipeline prefetching)")
+    a("-V", action="version", version=VERSION)
+    a("--bucket-bits", type=int, default=None)
+    a("--seed", type=int, default=None)
+    a("--mask-level", dest="mask_level2", type=float, default=None)
+    a("--max-chain-skip", type=int, default=None)
+    a("--min-dp-len", type=int, default=None)
+    a("--end-bonus", type=int, default=None)
+    a("--no-pairing", action="store_true")
+    a("--splice-flank", default=None, choices=["yes", "no"])
+    a("--idx-no-seq", action="store_true")
+    a("--end-seed-pen", type=int, default=None)
+    a("--dual", default=None, choices=["yes", "no"])
+    a("--max-clip-ratio", type=float, default=None)
+    a("--min-occ-floor", type=int, default=None)
+    a("--no-kalloc", action="store_true", help="(accepted for compatibility)")
+    a("--heap-sort", default=None, help="(accepted for compatibility)")
+    a("--print-qname", action="store_true")
+    a("--print-seeds", action="store_true",
+      help="debug: dump per-chain anchors (CN lines) to stderr")
+    a("--print-aln-seq", action="store_true",
+      help="debug: dump each DP problem's sequences to stderr")
+    a("-T", dest="sdust_thres", type=int, default=None,
+      help="SDUST threshold; 0 to disable low-complexity minimizer masking")
+    a("-p", dest="pri_ratio", type=float, default=None)
+    a("-N", dest="best_n", type=int, default=None)
+    # alignment
+    a("-A", dest="match", type=int, default=None)
+    a("-B", dest="mismatch", type=int, default=None)
+    a("-O", dest="gap_open", default=None)
+    a("-E", dest="gap_ext", default=None)
+    a("-z", dest="zdrop", default=None)
+    a("-s", "--min-dp-score", dest="min_dp_max", type=int, default=None)
+    a("-u", dest="splice_strand", default=None)
+    # io
+    a("-a", "--sam", dest="sam", action="store_true", help="output SAM")
+    a("-c", dest="cigar", action="store_true", help="output CIGAR in PAF")
+    a("-Q", dest="no_qual", action="store_true")
+    a("-L", dest="long_cigar", action="store_true")
+    a("-R", dest="rg", default=None, help="SAM read group line")
+    a("-t", dest="threads", type=int, default=3,
+      help="threads for index building and --device host; under --device "
+           "cuda|cpu mapping runs two batch threads whatever -t is")
+    a("-K", "--mb-size", dest="mini_batch", default=None)
+    a("-x", dest="preset", default=None)
+    a("--cs", dest="cs", nargs="?", const="short", default=None)
+    a("--MD", dest="md", action="store_true")
+    a("--for-only", action="store_true")
+    a("--rev-only", action="store_true")
+    a("--secondary", default=None, choices=["yes", "no", "y", "n"])
+    a("--frag", default=None, choices=["yes", "no", "y", "n"])
+    a("--sr", action="store_true")
+    a("--splice", action="store_true")
+    a("--no-long-join", action="store_true")
+    a("--max-intron-len", dest="max_intron_len2", default=None)
+    a("--soft-clipped", dest="softclip", action="store_true")
+    a("--device", default="cuda", choices=list(DEVICES),
+      help="compute path: cuda (the port's kernels), cpu (the same paths "
+           "with plain PyTorch) or host")
+    a("--mesh", default=None, metavar="DATAxINDEX",
+      help="(not supported by this port)")
+    a("--version", action="version", version=VERSION)
+    a("target")
+    a("query", nargs="*")
     return p
+
+
+def _run_debug_sequential(mi, mo, ns, rg_id, out, part_no, is_multi,
+                          argv_disp) -> None:
+    """--print-seeds / --print-aln-seq: single-threaded per-fragment mapping
+    so the stderr dumps interleave deterministically (reference forces
+    n_threads=1, main.c:358/361). QR/QM lines per map.c:606/449."""
+    from .models.pipeline import map_fragment_output
+    from .utils import mlog
+    if (mo.flag & C.MM_F_OUT_SAM) and part_no == 1:
+        if is_multi:
+            print("[WARNING] For a multi-part index, no @SQ lines will "
+                  "be outputted.", file=sys.stderr)
+        print(write_sam_hdr(None if is_multi else mi, ns.rg, "2.10-r761",
+                            "mm2tpu " + " ".join(argv_disp)), file=out)
+    frag_mode = len(ns.query) > 1 or bool(mo.flag & C.MM_F_FRAG_MODE)
+    for batch in read_frags(ns.query, mo.mini_batch_size, frag_mode):
+        for frag in batch:
+            s0 = frag.segs[0]
+            print(f"QR\t{s0.name}\t0\t{len(s0.seq)}", file=sys.stderr)
+            # QM follows the front half, before any result dump (map.c:449)
+            qlen_sum = sum(len(s.seq) for s in frag.segs)
+            print(f"QM\t{s0.name}\t{qlen_sum}\tcap=0,nCore=0,largest=0",
+                  file=sys.stderr)
+            lines = map_fragment_output(mi, mo, frag.segs, rg_id)
+            for line in lines:
+                print(line, file=out)
+        mlog.mlog("worker_pipeline",
+                  f"mapped {sum(len(f.segs) for f in batch)} sequences")
+
+
+def _si(v) -> int:
+    """Reference mm_parse_num (main.c:84-93): strtod's leading number, one
+    optional k/m/g suffix, trailing junk ignored, rounded via +.499."""
+    if v is None:
+        return 0
+    import re as _re
+    s = str(v)
+    m = _re.match(r"\s*[-+]?(\d+\.?\d*|\.\d+)([eE][-+]?\d+)?", s)
+    if not m:
+        return 0
+    x = float(m.group(0))
+    rest = s[m.end():]
+    if rest[:1] in ("g", "G"):
+        x *= 1e9
+    elif rest[:1] in ("m", "M"):
+        x *= 1e6
+    elif rest[:1] in ("k", "K"):
+        x *= 1e3
+    return int(x + .499)
+
+
+def apply_args(ns, io: IndexOptions, mo: MapOptions) -> None:
+    if ns.hpc:
+        io.flag |= C.MM_I_HPC
+    if ns.k is not None:
+        io.k = ns.k
+    if ns.w is not None:
+        io.w = ns.w
+    if ns.batch_size is not None:
+        io.batch_size = _si(ns.batch_size)
+    if ns.mid_occ_frac is not None:
+        mo.mid_occ_frac = ns.mid_occ_frac
+    if ns.max_gap is not None:
+        mo.max_gap = _si(ns.max_gap)
+    if ns.max_frag_len is not None:
+        mo.max_frag_len = _si(ns.max_frag_len)
+    if ns.bw is not None:
+        mo.bw = _si(ns.bw)
+    if ns.min_cnt is not None:
+        mo.min_cnt = ns.min_cnt
+    if ns.min_chain_score is not None:
+        mo.min_chain_score = ns.min_chain_score
+    if ns.ava:  # -X = -D -P --no-long-join --dual=no (main.c:336)
+        mo.flag |= (C.MM_F_ALL_CHAINS | C.MM_F_NO_DIAG | C.MM_F_NO_DUAL
+                    | C.MM_F_NO_LJOIN)
+    if ns.no_diag:
+        mo.flag |= C.MM_F_NO_DIAG
+    if ns.all_chains:
+        mo.flag |= C.MM_F_ALL_CHAINS
+    for v in (ns.mask_level, ns.mask_level2):
+        if v is not None:
+            mo.mask_level = v
+    if ns.noncan is not None:
+        mo.noncan = ns.noncan
+    if ns.softclip2:
+        mo.flag |= C.MM_F_SOFTCLIP
+    if ns.copy_comment:
+        mo.flag |= C.MM_F_COPY_COMMENT
+    if ns.bucket_bits is not None:
+        io.bucket_bits = ns.bucket_bits
+    if ns.seed is not None:
+        mo.seed = ns.seed
+    if ns.max_chain_skip is not None:
+        mo.max_chain_skip = ns.max_chain_skip
+    if ns.min_dp_len is not None:
+        mo.min_ksw_len = ns.min_dp_len
+    if ns.end_bonus is not None:
+        mo.end_bonus = ns.end_bonus
+    if ns.no_pairing:
+        mo.flag |= C.MM_F_INDEPEND_SEG
+    if ns.splice_flank == "yes":
+        mo.flag |= C.MM_F_SPLICE_FLANK
+    elif ns.splice_flank == "no":
+        mo.flag &= ~C.MM_F_SPLICE_FLANK
+    if ns.idx_no_seq:
+        io.flag |= C.MM_I_NO_SEQ
+    if ns.end_seed_pen is not None:
+        mo.anchor_ext_shift = ns.end_seed_pen
+    if ns.dual == "no":
+        mo.flag |= C.MM_F_NO_DUAL
+    elif ns.dual == "yes":
+        mo.flag &= ~C.MM_F_NO_DUAL
+    if ns.max_clip_ratio is not None:
+        mo.max_clip_ratio = ns.max_clip_ratio
+    if ns.min_occ_floor is not None:
+        mo.min_mid_occ = ns.min_occ_floor
+    if ns.splice_strand is not None:
+        u = ns.splice_strand
+        if u == "b":
+            mo.flag |= C.MM_F_SPLICE_FOR | C.MM_F_SPLICE_REV
+        elif u == "f":
+            mo.flag = (mo.flag | C.MM_F_SPLICE_FOR) & ~C.MM_F_SPLICE_REV
+        elif u == "r":
+            mo.flag = (mo.flag | C.MM_F_SPLICE_REV) & ~C.MM_F_SPLICE_FOR
+        elif u == "n":
+            mo.flag &= ~(C.MM_F_SPLICE_FOR | C.MM_F_SPLICE_REV)
+        else:
+            raise SystemExit("[ERROR] unrecognized cDNA direction")
+    if ns.sdust_thres is not None:
+        mo.sdust_thres = ns.sdust_thres
+    if ns.pri_ratio is not None:
+        mo.pri_ratio = ns.pri_ratio
+    if ns.best_n is not None:
+        mo.best_n = ns.best_n
+    if ns.match is not None:
+        mo.a = ns.match
+    if ns.mismatch is not None:
+        mo.b = ns.mismatch
+    if ns.gap_open is not None:
+        parts = str(ns.gap_open).split(",")
+        mo.q = int(parts[0])
+        if len(parts) > 1:
+            mo.q2 = int(parts[1])
+    if ns.gap_ext is not None:
+        parts = str(ns.gap_ext).split(",")
+        mo.e = int(parts[0])
+        if len(parts) > 1:
+            mo.e2 = int(parts[1])
+    if ns.zdrop is not None:
+        parts = str(ns.zdrop).split(",")
+        mo.zdrop = int(parts[0])
+        if len(parts) > 1:
+            mo.zdrop_inv = int(parts[1])
+    if ns.min_dp_max is not None:
+        mo.min_dp_max = ns.min_dp_max
+    if ns.sam:
+        mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+    if ns.cigar:
+        mo.flag |= C.MM_F_OUT_CG | C.MM_F_CIGAR
+    if ns.no_qual:
+        mo.flag |= C.MM_F_NO_QUAL
+    if ns.long_cigar:
+        mo.flag |= C.MM_F_LONG_CIGAR
+    if ns.cs is not None:
+        mo.flag |= C.MM_F_OUT_CS | C.MM_F_CIGAR
+        if ns.cs == "long":
+            mo.flag |= C.MM_F_OUT_CS_LONG
+    if ns.md:
+        mo.flag |= C.MM_F_OUT_MD | C.MM_F_CIGAR
+    if ns.for_only:
+        mo.flag |= C.MM_F_FOR_ONLY
+    if ns.rev_only:
+        mo.flag |= C.MM_F_REV_ONLY
+    if ns.secondary in ("no", "n"):       # yes_or_no both ways
+        mo.flag |= C.MM_F_NO_PRINT_2ND     # (main.c:95-106)
+    elif ns.secondary in ("yes", "y"):
+        mo.flag &= ~C.MM_F_NO_PRINT_2ND
+    if ns.frag in ("yes", "y"):
+        mo.flag |= C.MM_F_FRAG_MODE
+    elif ns.frag in ("no", "n"):
+        mo.flag &= ~C.MM_F_FRAG_MODE
+    if ns.no_long_join:
+        mo.flag |= C.MM_F_NO_LJOIN
+    if ns.softclip:
+        mo.flag |= C.MM_F_SOFTCLIP
+    if ns.mini_batch is not None:
+        mo.mini_batch_size = _si(ns.mini_batch)
+    for v in (ns.max_intron_len, ns.max_intron_len2):
+        if v is not None:
+            mo.max_intron_len(_si(v))
 
 
 def _index_parts(ns, io):
     """Yield index parts: prebuilt single-part, stock multi-part .mmi, or
     FASTA split every ~batch_size bases (index.c:459, :921)."""
-    from minimap2_chaindp_tpu.constants import seq_to_nt4
-    from minimap2_chaindp_tpu.index.build import build_index
-    from minimap2_chaindp_tpu.index.serialize import (is_mm2tpu_index,
-                                                      is_mmi_index,
-                                                      load_index,
-                                                      load_mmi_parts)
+    from .constants import seq_to_nt4
+    from .index.build import build_index
+    from .index.serialize import (is_mm2tpu_index, is_mmi_index, load_index,
+                                  load_mmi_parts)
     if is_mmi_index(ns.target) or is_mm2tpu_index(ns.target):
         parts = (load_mmi_parts(ns.target) if is_mmi_index(ns.target)
                  else [load_index(ns.target)])
@@ -89,7 +364,7 @@ def _announce(batches):
 
 def make_runtime(mi, mo, device: str, n_threads: int):
     if device == "host":
-        from minimap2_chaindp_tpu.models.host_runtime import HostRuntime
+        from .models.host_runtime import HostRuntime
         return HostRuntime(mi, mo, n_threads=n_threads)
     from .models.runtime import TorchRuntime
     return TorchRuntime(mi, mo, device="cuda:0" if device == "cuda"
@@ -109,15 +384,15 @@ def main(argv=None) -> int:
 
 
 def _main(argv=None) -> int:
-    from minimap2_chaindp_tpu.utils import mlog
-    from minimap2_chaindp_tpu.utils.prefetch import prefetch
+    from .utils import mlog
+    from .utils.prefetch import prefetch
     mlog.reset_timer()
     if argv is None:
         argv = sys.argv[1:]
     argv_disp = list(argv)
     # a bare --cs must not consume the next token (getopt_long semantics)
     argv = ["--cs=short" if a == "--cs" else a for a in argv]
-    ns = port_parser().parse_args(argv)
+    ns = build_parser().parse_args(argv)
     if ns.mesh:
         print("[ERROR] --mesh is not supported by the PyTorch port",
               file=sys.stderr)
@@ -186,8 +461,7 @@ def _main(argv=None) -> int:
                 f"average spacing: "
                 f"{(st['total_bases'] / sum_occ) if sum_occ else 0.0:.3f}")
         if ns.dump_index:
-            from minimap2_chaindp_tpu.index.serialize import (dump_index,
-                                                              dump_mmi)
+            from .index.serialize import dump_index, dump_mmi
             if ns.dump_index.endswith(".mmi"):
                 if dump_fp is None:
                     dump_fp = open(ns.dump_index, "wb")

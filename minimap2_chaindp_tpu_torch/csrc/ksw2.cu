@@ -2,11 +2,12 @@
 // anti-diagonal dual-affine DP (extd2 mode) and its splice mode (exts2),
 // bit-exact with the reference's SSE build, plus the CIGAR backtrack walk.
 //
-// Replaces minimap2_chaindp_tpu/ops/ksw2_pallas.py:_ksw_kernel (forward
-// pass, ksw_forward_kernel) and :_fused_walk (walk, ksw_walk_kernel).
+// Replaces minimap2_chaindp_tpu/ops/ksw2_pallas.py:_ksw_kernel (:238, the
+// forward pass: ksw_forward_smem_kernel, and ksw_forward_kernel with its
+// rows in device memory) and :_fused_walk (:90, the walk: ksw_walk_kernel).
 //
 // Contract: the numpy models ops/ksw2.extd2 and ops/ksw2_splice.exts2.  Per
-// job and anti-diagonal r the kernel keeps the reference's difference rows
+// job and anti-diagonal r the kernels keep the reference's difference rows
 // u, v, x, y, x2, y2 as real int8 (every sum wraps as the SSE lanes do), the
 // score row s, and the exact-score row H as int32.  Lanes are computed over
 // the 16-aligned band [st, en], not the live [st0, en0], and read stale
@@ -19,36 +20,86 @@
 // from the corner ksw2_pallas.py:127-137 picks, and writes one int8 step
 // code per step and fin (i, j, k) into the ez row.
 //
-// What bounds it on this card: the serial dependence over anti-diagonals.
-// Row r needs row r-1, so a job is (qlen + tlen - 1) dependent steps of at
-// most one band (about w lanes for extd2, min(qlen, tlen) for splice); the
-// per-row state is small and stays in L1/L2, so the forward pass is bound by
-// the latency of a row (loads, one barrier per 512-lane chunk, one block
-// reduction), not by bandwidth or arithmetic.
+// What bounds them on this card: not bytes (one backtrack byte out per
+// cell) and not arithmetic (55 integer operations a cell in extd2 mode and
+// 47 in exts2 mode, as chip_smoke.py counts them for the bound: what the
+// recurrence needs on int8 lanes, without the sign extensions that int8
+// in int32 registers costs here), but chains of dependent steps.  Row r
+// needs row r-1, so a forward job is qlen + tlen - 1 dependent rows of at
+// most one band, and a launch waits for its longest job; a walk is one
+// dependent read of p per step.  What counts is the latency of one step
+// and how many independent jobs the 132 SMs hold at once.
 //
-// What the design does about it: one thread block per job walks r in order
-// and its threads take one lane each, in 512-lane chunks from the top of
-// the band down.  Within a chunk every thread reads its old values (the
-// shifted x, v, x2 at t-1 too) before a barrier and writes after it;
-// chunks go downwards, so a lower chunk never reads a lane a higher one has
-// written this row.  The H row's maximum is one block reduction of
-// (H, scan key) per row; the scalar state (max, mqe, mte, z-drop, the
-// approximate H0 path) is updated by every thread alike, so the exit on
-// z-drop is uniform.  The walk is one thread per job.  Keeping the rows in
-// shared memory and several jobs per block are left for later work.
+// What the forward design does about it (ksw_forward_smem_kernel):
+// - The rows live in shared memory, as a ring of `ring` lanes per job
+//   (lane t in slot t & (ring - 1), 14 bytes a lane), sized by the job's
+//   band and not by its target: an unbanded splice job over an 8 kb
+//   intron with a 200-base query needs 256 lanes, not 8 k.  The ring
+//   needs no clearing: a lane of u, y, y2, x, v, x2 is read only where
+//   the previous row wrote it ([last_st, last_en]); elsewhere the value
+//   the reference would find is the initial one, because st and en never
+//   fall.  Only s is read from older rows, and the ring is wider than
+//   [st, hi], so those slots are still the lane's own; lanes above every
+//   s block so far read 0.
+// - One barrier a row.  x, v and x2, which lane t + 1 reads shifted, are
+//   double-buffered by row parity, so nobody waits between reading and
+//   writing; the values every thread needs after the row (H at en0, st0
+//   and en0 - 1, the approximate path's v[h0t] and u[h0t + 1]) are
+//   published by their lanes into a small parity-buffered record before
+//   that barrier instead of being read back from the rows after it.
+// - A block per job, half a ring of threads, 64 to 512 (more threads cost
+//   every row more than the passes they save), rings up to 16384 lanes
+//   (224 KB of dynamic shared memory).  The row's maximum is two
+//   warp-reduce instructions, one shared stage and two more; the scan key
+//   carries the lane, so the winner needs no division.  A call is one
+//   launch with the ring of its widest job: a narrow job's block takes
+//   the same shared memory, which costs occupancy only where rings are
+//   wide, and launches by ring size measured slower (every launch that
+//   shares the longest job's SM slows it).  A warp per job with
+//   __syncwarp() only, several jobs a block, was built and measured: ahead
+//   on a synthetic short-read wave, behind the block form on the real
+//   one (PERF.md section 6), so it is not kept.
+// - Longest first: blocks take jobs through an order array sorted by rows,
+//   so the longest chain of rows starts at once.
+// What is left: a wide band is bound by the instruction issue of the one
+// SM that runs its job (some 150 instructions a lane); spreading a job
+// over a thread-block cluster, or packing lanes in a register, is later
+// work.
+// ksw_forward_kernel keeps the rows in device memory, one block per job,
+// two barriers per 512-lane chunk: it serves jobs whose ring exceeds
+// shared memory (the shorter sequence over 16352 bases), chosen by size.
+//
+// What the walk design does: a warp per job.  32 steps move at most 64
+// rows down and 32 columns left, so the warp fetches that 64 x 32 window
+// of p in one round of independent coalesced loads into shared memory,
+// runs up to 32 steps of the state machine from there (every lane alike,
+// lane k keeping step k's code), and writes the codes as one coalesced
+// store.  Dependent round trips to device memory fall 32-fold.
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
 constexpr int kNegInf = -0x40000000;  // KSW_NEG_INF
 constexpr int kMaxThreads = 512;
+constexpr int kLaneBytes = 14;    // shared-memory bytes per ring lane
+constexpr int kSmemMax = 16384 * kLaneBytes;  // the widest ring: 224 KB
+constexpr int kWalkWarps = 4;     // jobs per block in the walk
+constexpr int kWalkRows = 64;     // window of p the walk fetches at once
+constexpr int kWalkCols = 32;
 constexpr int kMetaCols = 16;
 constexpr int kEzCols = 24;
 constexpr int kTailKey = 0x10000000;  // scan key of the scalar tail lanes
+// the shared-memory forms' scan key: the place in the reference's scan
+// order above the lane t, so that the winner's lane needs no division
+// (lanes stay below 2^15: targets of up to 16384 bases plus slack)
+constexpr int kKeyLaneBits = 15;
+constexpr int kKeyLaneMask = (1 << kKeyLaneBits) - 1;
+constexpr int kTailOrder = kKeyLaneMask;  // after every lane-of-4 column
 
 // meta columns (ops/ksw2_pack.py)
 enum {
@@ -72,12 +123,14 @@ struct FwdParams {
   const int16_t* dac;
   const int* meta;
   const long long* poff;
-  int8_t* state;  // 7 rows of t_total: u, v, x, y, x2, y2, s
-  int* hrow;      // t_total
+  const int* order;  // the launch's jobs, longest first
+  int8_t* state;     // device-memory form: 7 rows of t_total
+  int* hrow;         // device-memory form: t_total
   uint8_t* p;
   int* ez;
   long long t_total;
   int n_jobs;
+  int ring;  // shared-memory forms: lanes per job, a power of two
   Scoring sc;
 };
 
@@ -86,12 +139,15 @@ struct WalkParams {
   const long long* poff;
   const int* meta;
   int* ez;
+  const int* order;
   int8_t* ops;
   int n_jobs;
 };
 
 // int8 wraparound of an int (sign-extend the low byte)
-__device__ __forceinline__ int w8(int x) { return ((x & 255) ^ 128) - 128; }
+__device__ __forceinline__ int w8(int x) {
+  return static_cast<int>(static_cast<int8_t>(x));
+}
 
 // live band of diagonal r (ksw2_extd2_sse.c:131-139; exts2 is unbanded)
 template <bool SPLICE>
@@ -118,12 +174,337 @@ __device__ __forceinline__ bool better(int h, int k, int bh, int bk) {
   return h > bh || (h == bh && k < bk);
 }
 
+// Warp reduction of (H, scan key): the largest H and, among equals, the
+// smallest key, in every lane.
+__device__ __forceinline__ void warp_best(int& h, int& k) {
+  const int top = __reduce_max_sync(0xffffffffu, h);
+  k = __reduce_min_sync(0xffffffffu, h == top ? k : INT_MAX);
+  h = top;
+}
+
+// values a row's lanes publish for every thread of the job (see the
+// header note); one record per row parity
+enum { B_HEN0, B_HST0, B_HM1, B_V0, B_U1, B_COLS = 8 };
+
+// The forward pass with its rows in shared memory, a block per job.
+template <bool SPLICE>
+__global__ void __launch_bounds__(kMaxThreads)
+    ksw_forward_smem_kernel(const FwdParams P) {
+  extern __shared__ __align__(16) unsigned char rows_raw[];
+  __shared__ int red[2][kMaxThreads / 32][2];
+  __shared__ int bcast[2][B_COLS];
+  const int nthr = static_cast<int>(blockDim.x);
+  const int tid = static_cast<int>(threadIdx.x);
+  const int wid = tid >> 5;
+  const int job = P.order[blockIdx.x];
+  const int ring = P.ring, mask = ring - 1;
+  const Scoring sc = P.sc;
+  const int* m = P.meta + static_cast<size_t>(job) * kMetaCols;
+  const int qlen = m[M_QLEN], tlen = m[M_TLEN], w = m[M_W];
+  const int zdrop = m[M_ZDROP];
+  const int ncol = m[M_NCOL];
+  const bool with_cigar = ncol > 0;
+  // the reference takes the right-aligned rules only with a CIGAR
+  const bool right = with_cigar && m[M_RIGHT] != 0;
+  const bool approx = m[M_APPROX] != 0;
+  const bool adrop = m[M_ADROP] != 0;
+  const size_t toff = static_cast<size_t>(m[M_TOFF]);
+  int* H = reinterpret_cast<int*>(rows_raw);
+  int8_t* xb = reinterpret_cast<int8_t*>(rows_raw) + 4 * ring;  // [2][ring]
+  int8_t* vb = xb + 2 * ring;
+  int8_t* x2b = vb + 2 * ring;
+  int8_t* u = x2b + 2 * ring;
+  int8_t* y = u + ring;
+  int8_t* y2 = y + ring;
+  int8_t* s = y2 + ring;
+  const uint8_t* sf = P.tseq + toff;
+  const uint8_t* qr = P.qrev + m[M_QOFF];
+  const int16_t* dac = SPLICE ? P.dac + toff : nullptr;
+  uint8_t* pj = P.p + (with_cigar ? P.poff[job] : 0);
+
+  const int qe = sc.q + sc.e, qe2 = sc.q2 + sc.e2;
+  const int x2_init = SPLICE ? -sc.q2 : -qe2;
+  const int zdrop_e = SPLICE ? 0 : sc.e2;
+
+  int mx = 0, mx_t = -1, mx_q = -1, mqe = kNegInf, mqe_t = -1;
+  int mte = kNegInf, mte_q = -1, score = kNegInf, zdropped = 0;
+  int last_st = -1, last_en = -1, H0 = 0, h0t = 0;
+  int s_top = -1;  // highest lane any score block has reached
+  int prev_en0 = -1, hen0_prev = kNegInf, hm1_prev = kNegInf;
+  const int nrows = qlen + tlen - 1;
+  for (int r = 0; r < nrows; ++r) {
+    int st0, en0;
+    band<SPLICE>(r, qlen, tlen, w, st0, en0);
+    if (st0 > en0) {  // the band closed
+      zdropped = 1;
+      break;
+    }
+    const int st = st0 / 16 * 16;
+    const int en = (en0 + 16) / 16 * 16 - 1;
+    const int par = r & 1;
+    int8_t* xc = xb + par * ring;
+    int8_t* vc = vb + par * ring;
+    int8_t* x2c = x2b + par * ring;
+    const int8_t* xp = xb + (par ^ 1) * ring;
+    const int8_t* vp = vb + (par ^ 1) * ring;
+    const int8_t* x2p = x2b + (par ^ 1) * ring;
+    int* bc = bcast[par];
+    const bool inj = en >= r;
+    const int fr = f_seed<SPLICE>(r, sc);
+    const int s_end = st0 + 16 * ((en0 - st0) / 16 + 1);
+    const int hi = max(en, s_end - 1);
+    const int qbase = qlen - 1 - r;
+    const int en1 = st0 + (en0 - st0) / 4 * 4;
+    const int nr4 = (en1 - st0) >> 2;
+    // H of the previous row at en0 - 1 (at en0 when en0 is 0): en0 rises
+    // by 0 or 1 a row, so it is one of the two values kept from that row
+    const int hold_en0 =
+        en0 > 0 && en0 == prev_en0 ? hm1_prev : hen0_prev;
+    int best_h = INT_MIN, best_k = INT_MAX;
+
+    for (int c_hi = hi; c_hi >= st; c_hi -= nthr) {
+      const int c_lo = max(st, c_hi - nthr + 1);
+      const int t = c_lo + tid;
+      const bool live = t <= c_hi;
+      const bool in_band = live && t <= en;
+      const bool in_s = live && t >= st0 && t < s_end;
+      const int sl = t & mask;
+      int z = 0;
+      if (in_s) {
+        const int sq = sf[t], stq = qr[qbase + t];
+        z = (sq == 4 || stq == 4) ? sc.sc_n
+                                  : (sq == stq ? sc.mat0 : sc.sc_mis);
+        s[sl] = static_cast<int8_t>(z);
+      } else if (in_band) {
+        z = t <= s_top ? s[sl] : 0;  // stale score lane
+      }
+      if (in_band) {
+        // a lane the previous row did not write was never written
+        const bool fresh = t >= last_st && t <= last_en;
+        int ut = fresh ? u[sl] : -qe;
+        int yt = fresh ? y[sl] : -qe;
+        int y2t = (!SPLICE && fresh) ? y2[sl] : x2_init;
+        int xt1 = -qe, x2t1 = x2_init, vt1 = -qe;
+        if (t == 0) {
+          vt1 = fr;
+        } else if (t - 1 >= last_st && t - 1 <= last_en) {
+          const int ps = (t - 1) & mask;
+          xt1 = xp[ps];
+          x2t1 = x2p[ps];
+          vt1 = vp[ps];
+        }
+        if (inj && t == r) {  // boundary injection (:141-149)
+          ut = fr;
+          yt = -qe;
+          y2t = -qe2;
+        }
+        const int sig = SPLICE ? dac[t] : 0;
+        const int a = w8(xt1 + vt1);
+        const int b = w8(yt + ut);
+        const int a2 = w8(x2t1 + vt1);
+        int d = 0, a2c, b2 = 0, dn = 0;
+        if (SPLICE) {
+          dn = w8(sig);                 // donor, low byte
+          a2c = w8(a2 + w8(sig >> 8));  // intron exit pays the acceptor
+        } else {
+          b2 = w8(y2t + ut);
+          a2c = a2;
+        }
+        if (!with_cigar) {
+          z = max(max(z, a), max(b, a2c));
+          if (!SPLICE) z = max(z, b2);
+        } else if (!right) {  // left-aligned: a later state wins if greater
+          d = a > z ? 1 : 0;
+          z = max(z, a);
+          d = b > z ? 2 : d;
+          z = max(z, b);
+          d = a2c > z ? 3 : d;
+          z = max(z, a2c);
+          if (!SPLICE) {
+            d = b2 > z ? 4 : d;
+            z = max(z, b2);
+          }
+        } else {  // right-aligned: ties go to the later state
+          d = z > a ? 0 : 1;
+          z = max(z, a);
+          d = z > b ? d : 2;
+          z = max(z, b);
+          d = z > a2c ? d : 3;
+          z = max(z, a2c);
+          if (!SPLICE) {
+            d = z > b2 ? d : 4;
+            z = max(z, b2);
+          }
+        }
+        if (!SPLICE) z = min(z, sc.mat0);  // exts2 has no match clamp
+        const int un = w8(z - vt1);
+        const int vn = w8(z - ut);
+        const int tmp = w8(z - sc.q);
+        const int ax = w8(a - tmp);
+        const int bx = w8(b - tmp);
+        const int a2x = w8(a2 - w8(z - sc.q2));
+        const int thr = right ? -1 : 0;  // >= 0 right, > 0 left
+        const bool ca = ax > thr, cb = bx > thr;
+        u[sl] = static_cast<int8_t>(un);
+        vc[sl] = static_cast<int8_t>(vn);
+        xc[sl] = static_cast<int8_t>(w8((ca ? ax : 0) - qe));
+        y[sl] = static_cast<int8_t>(w8((cb ? bx : 0) - qe));
+        d |= (ca ? 0x08 : 0) | (cb ? 0x10 : 0);
+        if (SPLICE) {
+          // intron state: opened from H (donor-scored) or kept open
+          const bool ca2 = right ? a2x >= dn : a2x > dn;
+          x2c[sl] = static_cast<int8_t>(w8((ca2 ? a2x : dn) - sc.q2));
+          d |= ca2 ? 0x20 : 0;
+        } else {
+          const int b2x = w8(b2 - w8(z - sc.q2));
+          const bool ca2 = a2x > thr, cb2 = b2x > thr;
+          x2c[sl] = static_cast<int8_t>(w8((ca2 ? a2x : 0) - qe2));
+          y2[sl] = static_cast<int8_t>(w8((cb2 ? b2x : 0) - qe2));
+          d |= (ca2 ? 0x20 : 0) | (cb2 ? 0x40 : 0);
+        }
+        if (with_cigar)
+          pj[static_cast<size_t>(r) * ncol + (t - st)] =
+              static_cast<uint8_t>(d);
+        if (approx) {
+          if (t == h0t) bc[B_V0] = vn;
+          if (t == h0t + 1) bc[B_U1] = un;
+        } else if (t >= st0 && t <= en0) {
+          int hn, key;
+          if (t == en0) {
+            hn = r == 0 ? vn - qe
+                        : (en0 > 0 ? hold_en0 + un : hold_en0 + vn);
+            key = t;  // place 0: en0 comes first
+            bc[B_HEN0] = hn;
+          } else {
+            hn = H[sl] + vn;
+            const int off = t - st0;
+            const int place =
+                t < en1 ? 1 + (off & 3) * nr4 + (off >> 2) : kTailOrder;
+            key = (place << kKeyLaneBits) | t;
+          }
+          H[sl] = hn;
+          if (t == st0) bc[B_HST0] = hn;
+          if (t == en0 - 1) bc[B_HM1] = hn;
+          if (better(hn, key, best_h, best_k)) {
+            best_h = hn;
+            best_k = key;
+          }
+        }
+      }
+    }
+    // ---- the row's one barrier, and the reduction of (H, scan key): max
+    // H, ties to the first lane in the reference's scan order
+    if (!approx) {
+      warp_best(best_h, best_k);
+      if ((tid & 31) == 0) {
+        red[par][wid][0] = best_h;
+        red[par][wid][1] = best_k;
+      }
+    }
+    __syncthreads();
+    if (!approx) {
+      // every warp reduces the warps' winners once more
+      const int src = (tid & 31) < nthr / 32 ? (tid & 31) : 0;
+      best_h = red[par][src][0];
+      best_k = red[par][src][1];
+      warp_best(best_h, best_k);
+      const int max_t = best_k & kKeyLaneMask;
+      const int hen0 = bc[B_HEN0];
+      const int hst0 = bc[B_HST0];
+      // H at en0 - 1 after this row: written now, or left from before
+      const int hm1 = en0 - 1 >= st0
+                          ? bc[B_HM1]
+                          : (en0 == prev_en0 ? hm1_prev : hen0_prev);
+      if (en0 == tlen - 1 && hen0 > mte) {
+        mte = hen0;
+        mte_q = r - en;
+      }
+      if (r - st0 == qlen - 1 && hst0 > mqe) {
+        mqe = hst0;
+        mqe_t = st0;
+      }
+      hen0_prev = hen0;
+      hm1_prev = hm1;
+      // ksw_apply_zdrop (ksw2.h:160-176)
+      if (best_h > mx) {
+        mx = best_h;
+        mx_t = max_t;
+        mx_q = r - max_t;
+      } else if (max_t >= mx_t && r - max_t >= mx_q) {
+        const int l = abs((max_t - mx_t) - ((r - max_t) - mx_q));
+        if (zdrop >= 0 && mx - best_h > zdrop + l * zdrop_e) {
+          zdropped = 1;
+          break;
+        }
+      }
+      if (r == nrows - 1 && en0 == tlen - 1) score = hen0;
+    } else {
+      // approximate max: the greedy H0 path (:359-375); h0t stays within
+      // [st0 - 1, en0], so the lanes it reads were written in this row
+      if (r > 0) {
+        if (st0 <= h0t && h0t <= en0 && st0 <= h0t + 1 && h0t + 1 <= en0) {
+          const int d0 = bc[B_V0], d1 = bc[B_U1];
+          if (d0 > d1) {
+            H0 += d0;
+          } else {
+            H0 += d1;
+            ++h0t;
+          }
+        } else if (st0 <= h0t && h0t <= en0) {
+          H0 += bc[B_V0];
+        } else {
+          ++h0t;
+          H0 += bc[B_U1];
+        }
+      } else {
+        H0 = bc[B_V0] - qe;
+        h0t = 0;
+      }
+      if (adrop) {
+        if (H0 > mx) {
+          mx = H0;
+          mx_t = h0t;
+          mx_q = r - h0t;
+        } else if (h0t >= mx_t && r - h0t >= mx_q) {
+          const int l = abs((h0t - mx_t) - ((r - h0t) - mx_q));
+          if (zdrop >= 0 && mx - H0 > zdrop + l * zdrop_e) {
+            zdropped = 1;
+            break;
+          }
+        }
+      }
+      if (r == nrows - 1 && en0 == tlen - 1) score = H0;
+    }
+    prev_en0 = en0;
+    last_st = st;
+    last_en = en;
+    s_top = max(s_top, s_end - 1);
+  }
+  if (tid == 0) {
+    int* ez = P.ez + static_cast<size_t>(job) * kEzCols;
+    for (int c = 0; c < kEzCols; ++c) ez[c] = 0;
+    ez[C_MAX] = mx;
+    ez[C_MAX_T] = mx_t;
+    ez[C_MAX_Q] = mx_q;
+    ez[C_MQE] = mqe;
+    ez[C_MQE_T] = mqe_t;
+    ez[C_MTE] = mte;
+    ez[C_MTE_Q] = mte_q;
+    ez[C_SCORE] = score;
+    ez[C_ZDROP] = zdropped;
+  }
+}
+
+// The forward pass with its rows in device memory (jobs whose ring exceeds
+// shared memory): one block per job, lanes in 512-lane chunks from the top
+// of the band down, every old value read before a barrier and written
+// after it.
 template <bool SPLICE>
 __global__ void __launch_bounds__(kMaxThreads)
     ksw_forward_kernel(const FwdParams P) {
   __shared__ int red_h[kMaxThreads / 32];
   __shared__ int red_k[kMaxThreads / 32];
-  const int job = blockIdx.x;
+  const int job = P.order[blockIdx.x];
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const Scoring sc = P.sc;
@@ -436,17 +817,21 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// one thread per job: the ksw_backtrack state machine over the flat bytes
+// A warp per job: the ksw_backtrack state machine over the flat bytes, fed
+// from a window of p in shared memory (see the header note).
 template <bool SPLICE>
-__global__ void ksw_walk_kernel(const WalkParams P) {
-  const int job = blockIdx.x * blockDim.x + threadIdx.x;
-  if (job >= P.n_jobs) return;
+__global__ void __launch_bounds__(kWalkWarps * 32)
+    ksw_walk_kernel(const WalkParams P) {
+  __shared__ uint8_t tile[kWalkWarps][kWalkRows][kWalkCols];
+  __shared__ int band_st[kWalkWarps][kWalkRows];  // aligned band per row
+  __shared__ int band_en[kWalkWarps][kWalkRows];
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int wid = static_cast<int>(threadIdx.x >> 5);
+  const int slot = static_cast<int>(blockIdx.x) * kWalkWarps + wid;
+  if (slot >= P.n_jobs) return;
+  const int job = P.order[slot];
   const int* m = P.meta + static_cast<size_t>(job) * kMetaCols;
   int* ez = P.ez + static_cast<size_t>(job) * kEzCols;
-  ez[C_FIN_I] = -1;
-  ez[C_FIN_J] = -1;
-  ez[C_FIN_K] = 0;
-  if (m[M_SCONLY]) return;
   const int qlen = m[M_QLEN], tlen = m[M_TLEN], w = m[M_W];
   const int ncol = m[M_NCOL];
   const bool zdropped = ez[C_ZDROP] != 0, extz = m[M_EXTZ] != 0;
@@ -454,77 +839,163 @@ __global__ void ksw_walk_kernel(const WalkParams P) {
   const bool reach_end =
       !SPLICE && extz && !zdropped && ez[C_MQE] + m[M_ENDB] > ez[C_MAX];
   const bool full = !zdropped && !extz;
-  if (!reach_end && !full && !(ez[C_MAX_T] >= 0 && ez[C_MAX_Q] >= 0))
-    return;
+  const bool walk = !m[M_SCONLY] &&
+                    (reach_end || full ||
+                     (ez[C_MAX_T] >= 0 && ez[C_MAX_Q] >= 0));
   int i = reach_end ? ez[C_MQE_T] : (full ? tlen - 1 : ez[C_MAX_T]);
   int j = (reach_end || full) ? qlen - 1 : ez[C_MAX_Q];
+  __syncwarp();  // every lane has read ez before lane 0 writes fin
+  if (!walk) {
+    if (lane == 0) {
+      ez[C_FIN_I] = -1;
+      ez[C_FIN_J] = -1;
+      ez[C_FIN_K] = 0;
+    }
+    return;
+  }
   const uint8_t* pj = P.p + P.poff[job];
   int8_t* ops = P.ops + m[M_OPOFF];
+  uint8_t(*tl)[kWalkCols] = tile[wid];
+  int* wst = band_st[wid];
+  int* wen = band_en[wid];
   int state = 0, k = 0;
   while (i >= 0 && j >= 0) {
-    const int r = i + j;
-    int st0, en0;
-    band<SPLICE>(r, qlen, tlen, w, st0, en0);
-    const int st = st0 / 16 * 16;
-    const int en = (en0 + 16) / 16 * 16 - 1;
-    const int force = i < st ? 2 : (i > en ? 1 : -1);
-    const int tmp =
-        force >= 0 ? 0 : pj[static_cast<size_t>(r) * ncol + (i - st)];
-    if (state == 0)
-      state = tmp & 7;
-    else if (!((tmp >> (state + 2)) & 1))
-      state = 0;
-    if (state == 0) state = tmp & 7;
-    if (force >= 0) state = force;
-    ops[k++] = static_cast<int8_t>(state);
-    const bool is_m = state == 0;
-    const bool is_del = state == 1 || state == 3;
-    if (is_m || is_del) --i;
-    if (is_m || !is_del) --j;
+    // fetch rows r0 .. r0 - 63, columns i0 - 31 .. i0.  Each lane works
+    // out the aligned band of two rows (an empty one for a row that does
+    // not exist); then lane l takes column i0 - 31 + l of every row, one
+    // coalesced load a row, all of them in flight together.
+    const int r0 = i + j, i0 = i;
+    const int col = i0 - (kWalkCols - 1) + lane;
+#pragma unroll
+    for (int dr = lane; dr < kWalkRows; dr += 32) {
+      const int r = r0 - dr;
+      int st0 = 0, en0 = 0;
+      if (r >= 0) band<SPLICE>(r, qlen, tlen, w, st0, en0);
+      wst[dr] = r >= 0 ? st0 / 16 * 16 : 1;
+      wen[dr] = r >= 0 ? (en0 + 16) / 16 * 16 - 1 : 0;
+    }
+    __syncwarp();
+    {
+      uint8_t got[kWalkRows];
+#pragma unroll
+      for (int dr = 0; dr < kWalkRows; ++dr) {
+        const int st = wst[dr], en = wen[dr];
+        got[dr] = (col >= st && col <= en)
+                      ? __ldg(pj + static_cast<size_t>(r0 - dr) * ncol +
+                              (col - st))
+                      : static_cast<uint8_t>(0);
+      }
+#pragma unroll
+      for (int dr = 0; dr < kWalkRows; ++dr) tl[dr][lane] = got[dr];
+    }
+    __syncwarp();
+    // up to 32 steps from the window, every lane alike
+    int code = 0, n = 0;
+    while (n < 32 && i >= 0 && j >= 0) {
+      const int dr = r0 - (i + j);
+      const int st = wst[dr], en = wen[dr];
+      // the window holds 0 wherever the band has no byte, so the read
+      // waits for neither st nor en
+      const int tmp = tl[dr][i - i0 + (kWalkCols - 1)];
+      const int force = i < st ? 2 : (i > en ? 1 : -1);
+      if (state == 0)
+        state = tmp & 7;
+      else if (!((tmp >> (state + 2)) & 1))
+        state = 0;
+      if (state == 0) state = tmp & 7;
+      if (force >= 0) state = force;
+      if (lane == n) code = state;
+      ++n;
+      const bool is_m = state == 0;
+      const bool is_del = state == 1 || state == 3;
+      if (is_m || is_del) --i;
+      if (is_m || !is_del) --j;
+    }
+    if (lane < n) ops[k + lane] = static_cast<int8_t>(code);
+    k += n;
+    __syncwarp();  // the window is read before it is fetched again
   }
-  ez[C_FIN_I] = i;
-  ez[C_FIN_J] = j;
-  ez[C_FIN_K] = k;
+  if (lane == 0) {
+    ez[C_FIN_I] = i;
+    ez[C_FIN_J] = j;
+    ez[C_FIN_K] = k;
+  }
+}
+
+// Opts the shared-memory kernel in to the most dynamic shared memory any of
+// its launches asks for (kSmemMax), once per instantiation and device.  The
+// attribute belongs to the kernel, not to the launch, and launches come
+// from several host threads: set per launch to that launch's size, one
+// thread could lower it between another's setting and its launch.
+constexpr int kMaxDevices = 64;
+cudaError_t allow_smem(void (*kern)(const FwdParams), int which) {
+  static std::mutex mu;
+  static bool done[2][kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done[which][dev]) return cudaSuccess;
+  rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (rc == cudaSuccess) done[which][dev] = true;
+  return rc;
 }
 
 }  // namespace
 
-// Plain C entries bound with ctypes.  Both launch on `stream` and return
-// cudaGetLastError() (0 = ok).  threads: the forward pass's block size, a
-// multiple of 32 up to 512.
+// Plain C entries bound with ctypes.  All launch on `stream` and return
+// cudaGetLastError() (0 = ok).  `order` lists the launch's n_jobs job rows
+// of meta, longest first; one block takes one job.  variant: 0 the rows in
+// `ring` lanes of shared memory, 1 the rows in `state` and `hrow`.
+// threads: the block size, a multiple of 32 up to 512.
 extern "C" int mm2tpu_ksw_forward(
     const uint8_t* tseq, const uint8_t* qrev, const int16_t* dac,
-    const int* meta, const long long* poff, int8_t* state, int* hrow,
-    uint8_t* p, int* ez, long long t_total, int n_jobs, int q, int e, int q2,
-    int e2, int mat0, int sc_mis, int sc_n, int long_thres, int long_diff,
-    int splice, int threads, void* stream) {
+    const int* meta, const long long* poff, const int* order, int8_t* state,
+    int* hrow, uint8_t* p, int* ez, long long t_total, int n_jobs, int q,
+    int e, int q2, int e2, int mat0, int sc_mis, int sc_n, int long_thres,
+    int long_diff, int splice, int variant, int ring, int threads,
+    void* stream) {
   if (n_jobs <= 0) return 0;
-  if (threads < 32 || threads > kMaxThreads || threads % 32)
+  if (variant < 0 || variant > 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  const FwdParams P{tseq,  qrev, dac,     meta,   poff,
-                    state, hrow, p,       ez,     t_total,
-                    n_jobs,
+  const FwdParams P{tseq, qrev,  dac, meta, poff,    order,  state,
+                    hrow, p,     ez,  t_total,       n_jobs, ring,
                     Scoring{q, e, q2, e2, mat0, sc_mis, sc_n, long_thres,
                             long_diff}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splice)
-    ksw_forward_kernel<true><<<n_jobs, threads, 0, s>>>(P);
-  else
-    ksw_forward_kernel<false><<<n_jobs, threads, 0, s>>>(P);
+  if (variant == 1) {
+    if (splice)
+      ksw_forward_kernel<true><<<n_jobs, threads, 0, s>>>(P);
+    else
+      ksw_forward_kernel<false><<<n_jobs, threads, 0, s>>>(P);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t smem = static_cast<size_t>(ring) * kLaneBytes;
+  if (ring < 32 || (ring & (ring - 1)) ||
+      smem > static_cast<size_t>(kSmemMax))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void (*kern)(const FwdParams) = splice ? ksw_forward_smem_kernel<true>
+                                         : ksw_forward_smem_kernel<false>;
+  const cudaError_t rc = allow_smem(kern, splice ? 1 : 0);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kern<<<n_jobs, threads, smem, s>>>(P);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int mm2tpu_ksw_walk(const uint8_t* p, const long long* poff,
-                               const int* meta, int* ez, int8_t* ops,
-                               int n_jobs, int splice, void* stream) {
+                               const int* meta, const int* order, int* ez,
+                               int8_t* ops, int n_jobs, int splice,
+                               void* stream) {
   if (n_jobs <= 0) return 0;
-  const WalkParams P{p, poff, meta, ez, ops, n_jobs};
+  const WalkParams P{p, poff, meta, ez, order, ops, n_jobs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 128;
-  const int blocks = (n_jobs + threads - 1) / threads;
+  const int blocks = (n_jobs + kWalkWarps - 1) / kWalkWarps;
   if (splice)
-    ksw_walk_kernel<true><<<blocks, threads, 0, s>>>(P);
+    ksw_walk_kernel<true><<<blocks, kWalkWarps * 32, 0, s>>>(P);
   else
-    ksw_walk_kernel<false><<<blocks, threads, 0, s>>>(P);
+    ksw_walk_kernel<false><<<blocks, kWalkWarps * 32, 0, s>>>(P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,16 +1,18 @@
-"""Extension-job waves on the card: the executor the wave scheduler
-(`run_scheduler`, shared with the JAX package) hands every in-flight read's
-current jobs to.
+"""Extension-job waves: the scheduler that gathers every in-flight read's
+current jobs (`run_scheduler`) and the executors it hands them to.
 
-Port of minimap2_chaindp_tpu/models/batch_align.py:DeviceAlignExecutor
-(:30-197) with the same interface (`run(jobs) -> thunks`) and counters
-(`n_device`, `n_native`, `n_host`). Jobs inside the kernel's domain go to
-the CUDA ksw2 kernels with the backtrack walk on the card (exts2 under
-splice scoring, extd2 otherwise); the rest, and waves with fewer than
-MIN_DEV_JOBS such jobs, go to the native host batch, and to the NumPy
-model only where the native library is missing. There is no native
-crossover for eligible jobs, no timeout and no fallback: a CUDA error
-raises.
+Port of minimap2_chaindp_tpu/models/batch_align.py. `run_scheduler` and the
+domain caps are copied from it (:21-23, :200-230). `CudaAlignExecutor`
+takes the place of its DeviceAlignExecutor (:30-197) with the same
+interface (`run(jobs) -> thunks`) and counters (`n_device`, `n_native`,
+`n_host`): jobs inside the kernel's domain go to the CUDA ksw2 kernels
+with the backtrack walk on the card (exts2 under splice scoring, extd2
+otherwise); the rest, and waves with fewer than MIN_DEV_JOBS such jobs, go
+to the native host batch, and to the NumPy model only where the native
+library is missing. There is no native crossover for eligible jobs, no
+timeout and no fallback: a CUDA error raises. `HostAlignExecutor` is the
+host half alone (DeviceAlignExecutor with use_device=False), which
+HostRuntime uses.
 """
 from __future__ import annotations
 
@@ -19,41 +21,31 @@ from contextlib import nullcontext
 
 import torch
 
-from minimap2_chaindp_tpu import constants as C
-from minimap2_chaindp_tpu.align import _host_thunk
-from minimap2_chaindp_tpu.models.batch_align import (MAX_QLEN, MAX_TLEN,
-                                                     MIN_DEV_JOBS,
-                                                     run_scheduler)
-from minimap2_chaindp_tpu.ops import ksw2 as K
-
+from .. import constants as C
+from ..align import _host_thunk
+from ..ops import ksw2 as K
 from ..ops import ksw2_ext as KE
 
-__all__ = ["CudaAlignExecutor", "run_scheduler"]
+__all__ = ["CudaAlignExecutor", "HostAlignExecutor", "run_scheduler"]
+
+# domain caps of the extension kernels (jobs beyond them stay on the host)
+MAX_TLEN = 16384
+MAX_QLEN = 16384
+MIN_DEV_JOBS = 4     # tiny waves aren't worth a device launch
 
 
-class CudaAlignExecutor:
-    """Executes extension-job waves: the CUDA ksw2 kernels on `device`
-    (the plain versions when it is the CPU) for eligible jobs, the native
-    host batch for the rest. `timers`, when given, also receives the
-    counts as ext_device / ext_native / ext_host."""
+class HostAlignExecutor:
+    """Executes extension-job waves on the host: one native SIMD batch call
+    per wave (exts2 under splice scoring, extd2 otherwise; the
+    single-affine q == q2, e == e2 case has no native batch), the NumPy
+    model where the native library is missing. `timers`, when given, also
+    receives the counts as ext_device / ext_native / ext_host."""
 
-    def __init__(self, opt, device="cuda", timers=None):
+    def __init__(self, opt, timers=None):
         self.opt = opt
-        self.device = torch.device(device)
         self.timers = timers
         self.mat = K.gen_simple_mat(5, opt.a, opt.b)
-        # the kernel modes' domains (batch_align.py:57-64): splice scoring
-        # takes exts2; genomic scoring takes extd2 unless it degenerates to
-        # the single-affine extz path; both need the reference's
-        # precondition -min(mat) <= 2 * (q + e)
         self.splice = bool(opt.flag & C.MM_F_SPLICE)
-        if self.splice:
-            self.enabled = opt.q2 > opt.q + opt.e \
-                and -int(self.mat.min()) <= 2 * (opt.q + opt.e)
-        else:
-            self.enabled = not (opt.q == opt.q2 and opt.e == opt.e2) \
-                and -int(self.mat.min()) <= 2 * min(opt.q + opt.e,
-                                                    opt.q2 + opt.e2)
         self.n_device = self.n_native = self.n_host = 0
         self._lock = threading.Lock()   # two map_stream batch threads
 
@@ -64,6 +56,56 @@ class CudaAlignExecutor:
             setattr(self, f"n_{name}", getattr(self, f"n_{name}") + n)
         if self.timers is not None:
             self.timers.count(f"ext_{name}", n)
+
+    def _run_host(self, jobs, thunks) -> list:
+        """Fill every empty slot of `thunks` from the native batch, or
+        lazily from the NumPy model."""
+        rest = [i for i in range(len(jobs)) if thunks[i] is None]
+        o = self.opt
+        nat_fn = None
+        if rest and self.splice:
+            from ..native import exts2_batch_native
+            nat_fn = lambda js: exts2_batch_native(js, self.mat, o.q, o.e,
+                                                   o.q2, o.noncan)
+        elif rest and not (o.q == o.q2 and o.e == o.e2):
+            from ..native import extd2_batch_native
+            nat_fn = lambda js: extd2_batch_native(js, self.mat, o.q, o.e,
+                                                   o.q2, o.e2)
+        res = nat_fn([jobs[i] for i in rest]) if nat_fn is not None else None
+        if res is not None:
+            for i, ez in zip(rest, res):
+                thunks[i] = (lambda v=ez: v)
+            self._count("native", len(rest))
+            rest = []
+        for i in rest:
+            thunks[i] = _host_thunk(o, self.mat, jobs[i])
+        self._count("host", len(rest))
+        return thunks
+
+    def run(self, jobs) -> list:
+        return self._run_host(jobs, [None] * len(jobs))
+
+
+class CudaAlignExecutor(HostAlignExecutor):
+    """Executes extension-job waves: the CUDA ksw2 kernels on `device`
+    (the plain versions when it is the CPU) for eligible jobs, the native
+    host batch for the rest. `timers`, when given, also receives the
+    counts as ext_device / ext_native / ext_host."""
+
+    def __init__(self, opt, device="cuda", timers=None):
+        super().__init__(opt, timers)
+        self.device = torch.device(device)
+        # the kernel modes' domains: splice scoring takes exts2; genomic
+        # scoring takes extd2 unless it degenerates to the single-affine
+        # extz path; both need the reference's precondition
+        # -min(mat) <= 2 * (q + e) (ksw2_extd2_sse.c:91-92)
+        if self.splice:
+            self.enabled = opt.q2 > opt.q + opt.e \
+                and -int(self.mat.min()) <= 2 * (opt.q + opt.e)
+        else:
+            self.enabled = not (opt.q == opt.q2 and opt.e == opt.e2) \
+                and -int(self.mat.min()) <= 2 * min(opt.q + opt.e,
+                                                    opt.q2 + opt.e2)
 
     def _eligible(self, job) -> bool:
         ql, tl = len(job["qseq"]), len(job["tseq"])
@@ -90,26 +132,33 @@ class CudaAlignExecutor:
             for i, ez in zip(dev, res):
                 thunks[i] = (lambda v=ez: v)
             self._count("device", len(dev))
-        rest = [i for i in range(len(jobs)) if thunks[i] is None]
-        nat_fn = None
-        if rest and self.splice:
-            from minimap2_chaindp_tpu.native import exts2_batch_native
-            nat_fn = lambda js: exts2_batch_native(
-                js, self.mat, self.opt.q, self.opt.e, self.opt.q2,
-                self.opt.noncan)
-        elif rest and not (self.opt.q == self.opt.q2
-                           and self.opt.e == self.opt.e2):
-            from minimap2_chaindp_tpu.native import extd2_batch_native
-            nat_fn = lambda js: extd2_batch_native(
-                js, self.mat, self.opt.q, self.opt.e, self.opt.q2,
-                self.opt.e2)
-        res = nat_fn([jobs[i] for i in rest]) if nat_fn is not None else None
-        if res is not None:
-            for i, ez in zip(rest, res):
-                thunks[i] = (lambda v=ez: v)
-            self._count("native", len(rest))
-            rest = []
-        for i in rest:
-            thunks[i] = _host_thunk(self.opt, self.mat, jobs[i])
-        self._count("host", len(rest))
-        return thunks
+        return self._run_host(jobs, thunks)
+
+
+def run_scheduler(gens: list, executor) -> list:
+    """Drive many wave-yielding generators to completion, executing the
+    union of their current waves in one executor call per round.
+    Returns each generator's StopIteration value, in order."""
+    results = [None] * len(gens)
+    live: dict[int, tuple] = {}
+    for idx, g in enumerate(gens):
+        try:
+            live[idx] = (g, next(g))
+        except StopIteration as e:
+            results[idx] = e.value
+    while live:
+        all_jobs: list = []
+        spans: dict[int, tuple[int, int]] = {}
+        for idx, (g, wave) in live.items():
+            spans[idx] = (len(all_jobs), len(wave))
+            all_jobs.extend(wave)
+        thunks = executor.run(all_jobs)
+        nxt: dict[int, tuple] = {}
+        for idx, (g, wave) in live.items():
+            off, ln = spans[idx]
+            try:
+                nxt[idx] = (g, g.send(thunks[off:off + ln]))
+            except StopIteration as e:
+                results[idx] = e.value
+        live = nxt
+    return results

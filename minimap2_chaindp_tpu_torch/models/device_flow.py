@@ -19,16 +19,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from minimap2_chaindp_tpu import constants as C
-from minimap2_chaindp_tpu.ops.chain import Chains, chain_backtrack
-from minimap2_chaindp_tpu.ops.seeds import SeedHits
-from minimap2_chaindp_tpu.utils.timers import Timers
-
+from .. import constants as C
 from ..ops import chain_pack as CP
+from ..ops.chain import Chains, chain_backtrack
 from ..ops.chain_dp import chain_scores_batch
 from ..ops.chain_host import _v_from_fp, compact_from_fpv
+from ..ops.seeds import SeedHits
 from ..ops.seeds_device import (PAD_HI, SIGN, _collect_dev_pos, _rep_len,
                                 device_index_cached)
+from ..utils.timers import Timers
 
 # (minimizer-count, anchor-capacity) buckets: a read takes the smallest
 # bucket that fits both counts; past the last one it takes the staged path
@@ -48,7 +47,7 @@ def host_seed_stats(mi, mv: np.ndarray, max_occ: int):
     if nk == 0:
         z = np.zeros(len(mv), np.int64)
         return 0, 0, np.zeros(len(mv), bool), z, z
-    from minimap2_chaindp_tpu.native import key_lookup_batch
+    from ..native import key_lookup_batch
     pos = key_lookup_batch(mi.keys, key)   # prefix-directory path (r5):
     if pos is None:                        # genome-scale searchsorted was
         pos = np.searchsorted(mi.keys, key)   # the same key-search wall
@@ -219,8 +218,8 @@ class DeviceFlow:
                     use_exc=CP.infer_use_exc(exca))
             staged.append((entries, out))
 
-        from minimap2_chaindp_tpu.native import chain_bottom_native
-        from minimap2_chaindp_tpu.ops.seeds import collect_seed_hits
+        from ..native import chain_bottom_native
+        from ..ops.seeds import collect_seed_hits
         # host-side anchor re-derivation overlaps the device execution of
         # the staged dispatches (nothing above waited on the device)
         host_sh: dict[int, SeedHits] = {}
@@ -289,5 +288,5 @@ class DeviceFlow:
 
     @staticmethod
     def _seedhits(mv, over, anchors) -> SeedHits:
-        from minimap2_chaindp_tpu.ops.seeds import mini_pos_of
+        from ..ops.seeds import mini_pos_of
         return SeedHits(anchors, _rep_len(mv, over), mini_pos_of(mv, ~over))

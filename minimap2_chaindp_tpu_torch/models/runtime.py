@@ -23,18 +23,16 @@ import threading
 import numpy as np
 import torch
 
-from minimap2_chaindp_tpu import constants as C
-from minimap2_chaindp_tpu.models.pipeline import (finish_unit_gen,
-                                                  format_frag, host_chain,
-                                                  prepare_frag, seed_unit)
-from minimap2_chaindp_tpu.ops.chain import Chains, chain_backtrack
-from minimap2_chaindp_tpu.utils.timers import Timers
-
+from .. import constants as C
 from ..ops import chain_pack as CP
+from ..ops.chain import Chains, chain_backtrack
 from ..ops.chain_dp import chain_scores_batch
 from ..ops.chain_host import _v_from_fp, compact_from_fpv, split_anchors
+from ..utils.timers import Timers
 from .batch_align import CudaAlignExecutor, run_scheduler
 from .device_flow import DeviceFlow, flow_mode_ok
+from .pipeline import (finish_unit_gen, format_frag, host_chain,
+                       prepare_frag, seed_unit)
 
 # staged chain buckets: a unit takes the smallest that holds its anchors
 # (models/runtime.py:21); past the last one it chains on the host
@@ -95,7 +93,7 @@ class TorchRuntime:
 
     def map_batch(self, frags, rg_id: str = "") -> list[list[str]]:
         """Map a batch of fragments; returns per-fragment output lines."""
-        from minimap2_chaindp_tpu.native import (map_unit_ok,
+        from ..native import (map_unit_ok,
                                                  map_unit_text_chains_native)
         opt, mi = self.opt, self.mi
         frag_meta, units = [], []
@@ -165,7 +163,7 @@ class TorchRuntime:
     def _seed_hits(self, units) -> None:
         """Fill UnitInfo.sh on the host for units the flow left without
         anchors (models/runtime.py:1052-1091, host branch)."""
-        from minimap2_chaindp_tpu.ops.seeds import collect_seed_hits
+        from ..ops.seeds import collect_seed_hits
         opt, mi = self.opt, self.mi
         for segs, info in units:
             if info.mv is not None and len(info.mv) and info.sh is None:
@@ -178,7 +176,7 @@ class TorchRuntime:
         bounds, many_segs): port of models/runtime.py:1093-1195 without the
         native-chain crossover. `pending` is a list of (segs, UnitInfo);
         `precomputed` carries Chains the fused flow already made."""
-        from minimap2_chaindp_tpu.native import chain_bottom_native
+        from ..native import chain_bottom_native
         opt = self.opt
         is_cdna = bool(opt.flag & C.MM_F_SPLICE)
         results: dict[int, Chains] = dict(precomputed or {})

@@ -117,9 +117,9 @@ def load() -> ctypes.CDLL:
             lib.mm2tpu_chain_dp.restype = ci
             lib.mm2tpu_chain_dp.argtypes = [vp] * 12 + [ci] * 8 + [vp]
             lib.mm2tpu_ksw_forward.restype = ci
-            lib.mm2tpu_ksw_forward.argtypes = ([vp] * 9 + [ctypes.c_longlong]
-                                               + [ci] * 12 + [vp])
+            lib.mm2tpu_ksw_forward.argtypes = ([vp] * 10 + [ctypes.c_longlong]
+                                               + [ci] * 14 + [vp])
             lib.mm2tpu_ksw_walk.restype = ci
-            lib.mm2tpu_ksw_walk.argtypes = [vp] * 5 + [ci] * 2 + [vp]
+            lib.mm2tpu_ksw_walk.argtypes = [vp] * 6 + [ci] * 2 + [vp]
             _lib = lib
     return _lib

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from minimap2_chaindp_tpu import constants as C
+from .. import constants as C
 
 
 def split_anchors(anchors: np.ndarray):

@@ -10,12 +10,15 @@ versions run. `interpret`, `quantize` and `backtrack` are accepted and
 change nothing: the CIGAR always comes from the walk, run where the
 forward pass ran, so `p` never leaves the device.
 
-Two wrappers launch the kernels: `ksw_forward` (the anti-diagonal DP, one
-thread block per job, writing each job's backtrack bytes `p` in the
-reference's flat layout and its ez row) and `ksw_walk` (the CIGAR walk over
-`p`, one thread per job). A wave is cut into launches whose `p` bytes stay
-within a budget (`P_BUDGET`, read at each call), so an unbanded 16 kb
-splice job (about 0.5 GB of `p`) cannot exhaust the card.
+Two wrappers launch the kernels. `ksw_forward` runs the anti-diagonal DP,
+writing each job's backtrack bytes `p` in the reference's flat layout and
+its ez row: `ksw2_pack.launch_plan` makes the call one block-per-job
+launch with the rows in shared memory, plus a launch with the rows in
+device memory for jobs too wide for it, each longest job first. `ksw_walk` runs the CIGAR walk over
+`p`, a warp per job over windows of `p`. A wave is cut into calls whose
+`p` bytes stay within a budget
+(`P_BUDGET`, read at each call), so an unbanded 16 kb splice job (about
+0.5 GB of `p`) cannot exhaust the card.
 """
 from __future__ import annotations
 
@@ -24,18 +27,17 @@ import threading
 import numpy as np
 import torch
 
-from minimap2_chaindp_tpu.ops import ksw2 as K
-
+from . import ksw2 as K
 from .ksw2_pack import (C_FIN_I, C_FIN_J, C_FIN_K, C_MAX, C_MAX_Q, C_MAX_T,
                         C_MQE, C_MQE_T, C_MTE, C_MTE_Q, C_SCORE, C_ZDROP,
                         EZ_COLS, M_ADROP, M_APPROX, M_ENDB, M_EXTZ, M_NCOL,
                         M_OPOFF, M_QLEN, M_QOFF, M_RIGHT, M_SCONLY, M_TLEN,
                         M_TOFF, M_W, M_ZDROP, _decode_walk, _ez_from_row,
-                        _pow2_at_least, gap_params, pack_jobs,
-                        split_by_budget)
+                        gap_params, pack_jobs, split_by_budget)
 
 P_BUDGET = 2 << 30      # backtrack bytes per forward launch
-MAX_THREADS = 512       # forward block size cap (lanes per chunk)
+# pack_jobs' arrays that go to the device, in the wrappers' argument order
+TENSOR_KEYS = ("tseq", "qrev", "dac", "meta", "poff", "order")
 _launch_lock = threading.Lock()   # map_stream launches from two threads
 
 
@@ -49,60 +51,80 @@ def _kernel_device(t: torch.Tensor) -> bool:
     raise ValueError(f"ksw2 runs on cuda or cpu, not {t.device}")
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 
 
-def _count(fn) -> None:
-    with _launch_lock:
-        fn.launches += 1
-
-
 # ---------------------------------------------------------------- wrappers
-def ksw_forward(tseq, qrev, dac, meta, poff, *, scoring, splice, p_bytes,
-                t_total, band_max, rows_max):
+_VARIANT_CODE = {"block": 0, "global": 1}
+
+
+def _stream(dev):
+    """PyTorch's current stream on `dev`, as the pointer the C entries
+    take."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def ksw_forward(tseq, qrev, dac, meta, poff, order, *, groups, scoring,
+                splice, p_bytes, t_total, band_max, rows_max):
     """Forward DP of every job in `meta`; returns (p, ez): p uint8
     (p_bytes,) the flat backtrack bytes, ez int32 (R, EZ_COLS).
     scoring = (q, e, q2, e2, mat0, sc_mis, sc_n, long_thres, long_diff)
     after the gap-profile swap. Inputs are pack_jobs' arrays as tensors on
-    one device: a CUDA device launches the kernel, the CPU runs
-    `ksw_forward_ref`."""
-    if not _kernel_device(meta):
-        return ksw_forward_ref(tseq, qrev, dac, meta, poff, scoring=scoring,
-                               splice=splice, p_bytes=p_bytes,
-                               t_total=t_total, band_max=band_max,
-                               rows_max=rows_max)
-    from ._build import load
-    lib = load()
+    one device; `order` and `groups` are `launch_plan`'s. Each group is one
+    launch of its variant of the kernel on a CUDA device; on the CPU each
+    group runs through `ksw_forward_ref`."""
+    on_card = _kernel_device(meta)
     dev = meta.device
     R = meta.shape[0]
-    p = torch.empty(max(p_bytes, 1), dtype=torch.uint8, device=dev)
     ez = torch.empty((R, EZ_COLS), dtype=torch.int32, device=dev)
-    state = torch.empty(7 * t_total, dtype=torch.int8, device=dev)
-    hrow = torch.empty(t_total, dtype=torch.int32, device=dev)
-    threads = min(MAX_THREADS, _pow2_at_least(band_max, 64))
-    with torch.cuda.device(dev):
-        rc = lib.mm2tpu_ksw_forward(
-            *(t.data_ptr() for t in (tseq, qrev, dac, meta, poff, state,
-                                     hrow, p, ez)),
-            t_total, R, *scoring, int(splice), threads, _stream(dev))
-    _check(rc, "ksw forward")
-    _count(ksw_forward)
+    if not on_card:
+        p = torch.zeros(max(p_bytes, 1), dtype=torch.uint8)
+        for g in groups:
+            idx = order[g["start"]:g["start"] + g["count"]].long()
+            sub = meta[idx]
+            rows = int((sub[:, M_QLEN] + sub[:, M_TLEN] - 1).max())
+            p_g, ez_g = ksw_forward_ref(
+                tseq, qrev, dac, sub, poff[idx], scoring=scoring,
+                splice=splice, p_bytes=p_bytes, t_total=t_total,
+                band_max=band_max, rows_max=rows)
+            p |= p_g          # the groups' bytes do not overlap
+            ez[idx] = ez_g
+        return p, ez
+    from ._build import load
+    lib = load()
+    p = torch.empty(max(p_bytes, 1), dtype=torch.uint8, device=dev)
+    state = hrow = None
+    if any(g["variant"] == "global" for g in groups):
+        state = torch.empty(7 * t_total, dtype=torch.int8, device=dev)
+        hrow = torch.empty(t_total, dtype=torch.int32, device=dev)
+    for g in groups:
+        with torch.cuda.device(dev):
+            rc = lib.mm2tpu_ksw_forward(
+                *(t.data_ptr() for t in (tseq, qrev, dac, meta, poff)),
+                order.data_ptr() + 4 * g["start"],
+                state.data_ptr() if state is not None else None,
+                hrow.data_ptr() if hrow is not None else None,
+                p.data_ptr(), ez.data_ptr(), t_total, g["count"], *scoring,
+                int(splice), _VARIANT_CODE[g["variant"]], g["ring"],
+                g["threads"], _stream(dev))
+        _check(rc, f"ksw forward ({g['variant']})")
+        with _launch_lock:
+            ksw_forward.launches += 1
+            ksw_forward.by_variant[g["variant"]] += 1
     return p, ez
 
 
 ksw_forward.launches = 0
+ksw_forward.by_variant = {"block": 0, "global": 0}
 
 
-def ksw_walk(p, poff, meta, ez, *, splice, ops_total):
+def ksw_walk(p, poff, meta, order, ez, *, splice, ops_total):
     """Backtrack walk of every job that needs a CIGAR; returns ops int8
     (ops_total,) step codes at each job's meta[M_OPOFF] and writes fin
-    (i, j, k) into ez's C_FIN_* columns. CUDA tensors launch the kernel,
+    (i, j, k) into ez's C_FIN_* columns. The last len(meta) entries of
+    `order` are `launch_plan`'s walk order. CUDA tensors launch the kernel,
     CPU tensors run `ksw_walk_ref`."""
     if not _kernel_device(meta):
         return ksw_walk_ref(p, poff, meta, ez, splice=splice,
@@ -110,13 +132,16 @@ def ksw_walk(p, poff, meta, ez, *, splice, ops_total):
     from ._build import load
     lib = load()
     dev = meta.device
+    R = meta.shape[0]
     ops = torch.empty(max(ops_total, 1), dtype=torch.int8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.mm2tpu_ksw_walk(
-            *(t.data_ptr() for t in (p, poff, meta, ez, ops)),
-            meta.shape[0], int(splice), _stream(dev))
+            p.data_ptr(), poff.data_ptr(), meta.data_ptr(),
+            order.data_ptr() + 4 * (order.numel() - R), ez.data_ptr(),
+            ops.data_ptr(), R, int(splice), _stream(dev))
     _check(rc, "ksw walk")
-    _count(ksw_walk)
+    with _launch_lock:
+        ksw_walk.launches += 1
     return ops
 
 
@@ -441,15 +466,14 @@ def _batch_async(jobs, mat, gaps, *, splice, noncan, device):
     for idxs in split_by_budget(jobs, splice, P_BUDGET):
         grp = [jobs[i] for i in idxs]
         pk = pack_jobs(grp, splice=splice, noncan=noncan)
-        ts = {k: torch.from_numpy(pk[k]).to(dev)
-              for k in ("tseq", "qrev", "dac", "meta", "poff")}
+        ts = {k: torch.from_numpy(pk[k]).to(dev) for k in TENSOR_KEYS}
         p, ez = ksw_forward(
-            ts["tseq"], ts["qrev"], ts["dac"], ts["meta"], ts["poff"],
+            *(ts[k] for k in TENSOR_KEYS), groups=pk["groups"],
             scoring=scoring, splice=splice, p_bytes=pk["p_bytes"],
             t_total=pk["t_total"], band_max=pk["band_max"],
             rows_max=pk["rows_max"])
-        ops = ksw_walk(p, ts["poff"], ts["meta"], ez, splice=splice,
-                       ops_total=pk["ops_total"])
+        ops = ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez,
+                       splice=splice, ops_total=pk["ops_total"])
         staged.append((grp, pk, ez, ops))
 
     def collect_ez():
@@ -467,7 +491,7 @@ def _batch_async(jobs, mat, gaps, *, splice, noncan, device):
 
 
 def extd2_batch(jobs, mat, q, e, q2, e2, interpret=False, quantize=False,
-                backtrack="host", device="cpu"):
+                backtrack="host", device="cuda"):
     """Batched ksw_extd2: extd2_batch_async run to its end."""
     return extd2_batch_async(jobs, mat, q, e, q2, e2, interpret=interpret,
                              quantize=quantize, backtrack=backtrack,
@@ -475,7 +499,7 @@ def extd2_batch(jobs, mat, q, e, q2, e2, interpret=False, quantize=False,
 
 
 def extd2_batch_async(jobs, mat, q, e, q2, e2, interpret=False,
-                      quantize=False, backtrack="host", device="cpu"):
+                      quantize=False, backtrack="host", device="cuda"):
     """Batched ksw_extd2 with K.extd2's per-job semantics; jobs are dicts
     (qseq, tseq, w, zdrop, end_bonus, flag). Dispatches and returns
     collect_ez (see the module docstring)."""
@@ -485,7 +509,7 @@ def extd2_batch_async(jobs, mat, q, e, q2, e2, interpret=False,
 
 
 def exts2_batch(jobs, mat, q, e, q2, noncan, interpret=False,
-                quantize=False, backtrack="host", device="cpu"):
+                quantize=False, backtrack="host", device="cuda"):
     """Batched ksw_exts2: exts2_batch_async run to its end."""
     return exts2_batch_async(jobs, mat, q, e, q2, noncan,
                              interpret=interpret, quantize=quantize,
@@ -493,7 +517,7 @@ def exts2_batch(jobs, mat, q, e, q2, noncan, interpret=False,
 
 
 def exts2_batch_async(jobs, mat, q, e, q2, noncan, interpret=False,
-                      quantize=False, backtrack="host", device="cpu"):
+                      quantize=False, backtrack="host", device="cuda"):
     """Batched splice extension with ksw2_splice.exts2's per-job
     semantics (unbanded); jobs are dicts (qseq, tseq, zdrop, flag)."""
     del interpret, quantize, backtrack

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from minimap2_chaindp_tpu.ops import ksw2 as K
+from . import ksw2 as K
 
 # ---- copied from minimap2_chaindp_tpu/ops/ksw2_pallas.py:42-57
 # scal_ref column assignments (per-job scalar state carried across diagonals)
@@ -37,13 +37,23 @@ C_FIN_I, C_FIN_J, C_FIN_K = 20, 21, 22
 # ---- end of the copy
 
 # the port's own meta columns: the C row stride of the job's backtrack
-# bytes (0 for score-only jobs) and the offsets of its target/state,
-# reversed query and walk step codes in the ragged buffers
-M_NCOL, M_TOFF, M_QOFF, M_OPOFF = range(10, 14)
+# bytes (0 for score-only jobs), the offsets of its target/state, reversed
+# query and walk step codes in the ragged buffers, and the lanes its DP
+# rows need on chip (the widest aligned band plus the score block tail)
+M_NCOL, M_TOFF, M_QOFF, M_OPOFF, M_LANES = range(10, 15)
 META_COLS = 16
 EZ_COLS = 24          # C_* state columns and the walk's fin (i, j, k)
 T_PAD = 32            # per-job target/state slack past tlen16 (s[] blocks)
 Q_PAD = 16            # per-job reversed-query slack (16-lane score loads)
+
+# forward-kernel variants (csrc/ksw2.cu), chosen by the power-of-two ring of
+# lanes that holds a job's rows: a block per job with the rows in shared
+# memory, or, past the 16384 lanes of 14 bytes that one block's shared
+# memory (227 KB) holds, a block per job with the rows in device memory.
+VARIANTS = ("block", "global")
+RING_MIN = 64
+SMEM_RING_MAX = 16384
+MAX_THREADS = 512     # forward block size cap
 
 
 def _pow2_at_least(x, lo):
@@ -75,7 +85,7 @@ def _decode_walk(jobs, out, ez_h, ops_h, *, splice, long_thres):
     run-length encodes the codes into each ez.cigar.
 
     Copied from minimap2_chaindp_tpu/ops/ksw2_pallas.py:852-873."""
-    from minimap2_chaindp_tpu.ops.ksw2_backtrack import decode_cigar
+    from .ksw2_backtrack import decode_cigar
     for j, (job, res) in enumerate(zip(jobs, out)):
         flag = job["flag"]
         if flag & K.KSW_EZ_SCORE_ONLY:
@@ -93,6 +103,69 @@ def _decode_walk(jobs, out, ez_h, ops_h, *, splice, long_thres):
         res.cigar = decode_cigar(
             ops_h[j], int(ez_h[j, C_FIN_K]), int(ez_h[j, C_FIN_I]),
             int(ez_h[j, C_FIN_J]), rev, long_thres if splice else 0)
+
+
+def ring_of(lanes: int) -> int:
+    """Lanes of the on-chip ring that holds a job's rows: the power of two
+    at or above `lanes` (meta[M_LANES]), at least RING_MIN."""
+    return _pow2_at_least(int(lanes), RING_MIN)
+
+
+def variant_of(lanes: int) -> str:
+    """The forward-kernel variant a job of `lanes` row lanes takes."""
+    return "block" if ring_of(lanes) <= SMEM_RING_MAX else "global"
+
+
+def block_threads(ring: int) -> int:
+    """Block size of a block-per-job launch: half a ring (a band fills
+    between half its ring and all of it, less the slack), 64 to
+    MAX_THREADS."""
+    return min(MAX_THREADS, max(64, ring // 2))
+
+
+def launch_plan(meta: np.ndarray, force: str | None = None):
+    """Cut a call's jobs into forward-kernel launches and order each
+    longest first (rows = qlen + tlen - 1, descending, ties in the caller's
+    order). Returns (order, groups): `order` int32 lists meta rows, the
+    groups' jobs back to back and then every job once more, longest first,
+    for the walk (its last len(meta) entries); each group is a
+    dict(variant, ring, threads, start, count) over a slice of `order`.
+    Groups, at most two: the jobs whose ring exceeds shared memory are one
+    device-memory launch, the others one shared-memory launch with the
+    ring of the widest. The launch waits for its longest job, and a second
+    launch that shares that job's SM slows it, so small jobs ride along in
+    the wide launch. Results are written at each job's own row, so nothing
+    is permuted back. `force` puts every job into one group of that
+    variant, and raises where a job's ring does not fit."""
+    R = len(meta)
+    rows = meta[:, M_QLEN].astype(np.int64) + meta[:, M_TLEN] - 1
+    by_len = np.argsort(-rows, kind="stable").astype(np.int32)
+    rings = np.array([ring_of(x) for x in meta[:, M_LANES]], dtype=np.int64)
+    if force is not None:
+        if force not in VARIANTS:
+            raise ValueError(f"unknown forward variant {force!r}")
+        top = int(rings.max()) if R else RING_MIN
+        if force == "block" and top > SMEM_RING_MAX:
+            raise ValueError(f"a job needs a ring of {top} lanes; shared "
+                             f"memory holds {SMEM_RING_MAX}")
+        parts = [(force, np.ones(R, dtype=bool))]
+    else:
+        on_chip = rings <= SMEM_RING_MAX
+        parts = [("global", ~on_chip),   # the longest chains first
+                 ("block", on_chip)]
+    order, groups = [], []
+    for variant, mask in parts:
+        idx = by_len[mask[by_len]]
+        if not len(idx):
+            continue
+        ring = int(rings[idx].max())
+        threads = block_threads(ring) if variant == "block" else min(
+            MAX_THREADS, _pow2_at_least(int(meta[idx, M_LANES].max()), 64))
+        groups.append(dict(variant=variant, ring=ring, threads=threads,
+                           start=sum(map(len, order)), count=len(idx)))
+        order.append(idx)
+    order.append(by_len)
+    return np.concatenate(order).astype(np.int32), groups
 
 
 def gap_params(q, e, q2, e2, splice):
@@ -174,6 +247,7 @@ def pack_jobs(jobs, *, splice: bool, noncan: int = 0):
     - meta int32 (R, META_COLS): the M_* columns of ksw2_pallas.py:937-953
       and :1046-1065 plus the port's stride and offsets;
     - poff int64 (R,): each job's first byte in the flat backtrack buffer;
+    - order int32: `launch_plan`'s job order, with its `groups`;
     plus p_bytes, ops_total (walk step-code capacity), t_total, band_max
     (widest aligned band plus the score block tail, in lanes) and rows_max.
     Jobs need qlen >= 1 and tlen >= 1."""
@@ -224,11 +298,14 @@ def pack_jobs(jobs, *, splice: bool, noncan: int = 0):
         meta[j, M_TOFF] = to
         meta[j, M_QOFF] = qo
         meta[j, M_OPOFF] = int(opoff[j])
+        meta[j, M_LANES] = ncol + 16
         poff[j] = p_bytes
         if not sconly:
             p_bytes += (ql + tl - 1) * ncol
+    order, groups = launch_plan(meta)
     return dict(tseq=tseq, qrev=qrev, dac=dac, meta=meta, poff=poff,
-                p_bytes=p_bytes, ops_total=int((nrows + 1).sum()),
+                order=order, groups=groups, p_bytes=p_bytes,
+                ops_total=int((nrows + 1).sum()),
                 t_total=int(tsz.sum()), band_max=band_max,
                 rows_max=int(nrows.max()) if R else 0)
 

@@ -15,7 +15,7 @@ import hashlib
 import numpy as np
 import torch
 
-from minimap2_chaindp_tpu import constants as C
+from .. import constants as C
 
 SIGN = -0x80000000            # int32 sign bit
 PAD_HI = 0x7FFFFFFF           # sort-key high half of padded slots

@@ -1,10 +1,13 @@
 """The port on the card: the CUDA chain kernel against its plain PyTorch
 version on every kernel case of chip_smoke.py (bit-exact f, p, flag), the
-ksw2 forward and walk kernels against theirs on chip_smoke.ksw_cases()
-(bit-exact ez rows, step codes, fin), and TorchRuntime on cuda against
-HostRuntime (byte-identical lines) under map-ont and -x splice. Skips
-without a CUDA device. This file imports no JAX, so on a GPU host without
-JAX it runs as
+ksw2 forward kernel (as the wrapper plans its launches and in every
+variant that holds the jobs, forced) and the walk kernel against theirs on
+chip_smoke.ksw_cases() and on jobs at the variants' boundaries (bit-exact
+ez rows, step codes, fin), the shared-memory limit against the native host
+library, and TorchRuntime on cuda against the port's HostRuntime
+(byte-identical lines) under map-ont and -x splice. Skips without a CUDA
+device. This file imports neither JAX nor the JAX package, so on a GPU
+host without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -16,7 +19,6 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 pytestmark = pytest.mark.cuda
 
@@ -46,12 +48,12 @@ def test_chain_kernel_matches_ref_on_card(cuda):
 
 
 def test_runtime_on_card_matches_host(cuda, tmp_path):
-    import genome_scale as G
-    from minimap2_chaindp_tpu import constants as C
-    from minimap2_chaindp_tpu.index.build import build_index
-    from minimap2_chaindp_tpu.io.fastx import read_fastx, read_frags
-    from minimap2_chaindp_tpu.models.host_runtime import HostRuntime
-    from minimap2_chaindp_tpu.options import set_opt
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx, read_frags
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
     from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
     from minimap2_chaindp_tpu_torch.ops import seeds_device as TS
@@ -84,15 +86,108 @@ def test_ksw_kernels_match_ref_on_card(cuda):
         if len(jobs) == 64:
             continue   # the 64 x 10 kb case: chip_smoke.py only
         pk, ts, kw = ksw_inputs(jobs, scoring, splice, cuda)
-        assert compare_ksw(name, pk, ts, kw, reps=1)[0] == 0, name
+        assert compare_ksw(name, pk, ts, kw, reps=1)["err"] == 0, name
+
+
+def boundary_jobs(splice):
+    """Jobs whose rows sit at the rings' boundaries (ring sizes 64, 128,
+    256, 512 and 1024 lanes, one block size each up to 512 threads), in
+    every mode of the kernels: approximate and exact maxima, right and
+    left alignment, score only, z-drop on (divergent pairs) and off."""
+    import numpy as np
+    from chip_smoke import _mutate_codes
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    rng = np.random.default_rng(29)
+    base = K.KSW_EZ_SPLICE_FOR if splice else 0
+    flags = [base, base | K.KSW_EZ_APPROX_MAX,
+             base | K.KSW_EZ_EXTZ_ONLY | K.KSW_EZ_RIGHT,
+             base | K.KSW_EZ_EXTZ_ONLY | K.KSW_EZ_RIGHT | K.KSW_EZ_REV_CIGAR,
+             base | K.KSW_EZ_SCORE_ONLY,
+             base | K.KSW_EZ_APPROX_MAX | K.KSW_EZ_APPROX_DROP]
+    jobs = []
+    # min(qlen, tlen, w + 1) -> lanes: 32 -> 64, 33 -> 80, 96 -> 128,
+    # 97 -> 144, 224 -> 256, 225 -> 272, 480 -> 512, 481 -> 528
+    for k, n in enumerate((31, 32, 33, 96, 97, 224, 225, 480, 481)):
+        for f, flag in enumerate(flags):
+            t = rng.integers(0, 4, n + 40).astype(np.uint8)
+            divergent = (k + f) % 4 == 3
+            q = rng.integers(0, 4, n + 30).astype(np.uint8) if divergent \
+                else _mutate_codes(rng, t)
+            eb = 10 if flag & K.KSW_EZ_EXTZ_ONLY else -1
+            jobs.append(dict(
+                qseq=q, tseq=t, w=-1 if splice else n - 1,
+                zdrop=-1 if f == 0 else 100, end_bonus=eb, flag=flag))
+            if splice:   # unbanded: the shorter sequence sets the lanes
+                jobs[-1]["qseq"] = jobs[-1]["qseq"][:n]
+    return jobs
+
+
+@pytest.mark.parametrize("splice", [False, True], ids=["extd2", "exts2"])
+def test_ksw_variant_boundaries_on_card(cuda, splice):
+    from chip_smoke import compare_ksw, ksw_inputs
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    _, o = set_opt("splice" if splice else "map-ont")
+    scoring = (o.q, o.e, o.q2, o.noncan if splice else o.e2, o.a, o.b)
+    jobs = boundary_jobs(splice)
+    # all together: one block-per-job launch with the widest ring, then
+    # block and global forced
+    pk, ts, kw = ksw_inputs(jobs, scoring, splice, cuda)
+    assert [(g["variant"], g["ring"]) for g in pk["groups"]] == \
+        [("block", 1024)]
+    res = compare_ksw("boundaries", pk, ts, kw, reps=1)
+    assert res["err"] == 0 and set(res["variant_ms"]) == set(KPK.VARIANTS)
+    # and the narrow ones alone: a launch of 128-thread blocks
+    narrow = [j for j, lanes in zip(jobs, pk["meta"][:, KPK.M_LANES])
+              if KPK.ring_of(lanes) <= 256]
+    pk, ts, kw = ksw_inputs(narrow, scoring, splice, cuda)
+    assert [(g["variant"], g["ring"], g["threads"])
+            for g in pk["groups"]] == [("block", 256, 128)]
+    assert {KPK.ring_of(x) for x in pk["meta"][:, KPK.M_LANES]} == \
+        {64, 128, 256}
+    res = compare_ksw("narrow boundaries", pk, ts, kw, reps=1)
+    assert res["err"] == 0 and set(res["variant_ms"]) == set(KPK.VARIANTS)
+
+
+def test_ksw_shared_memory_limit_on_card(cuda):
+    """The widest ring shared memory holds (16384 lanes, 224 KB in one
+    block) and the first job past it, which takes the device-memory
+    variant: both against the native host library (the reference's SIMD
+    kernel), Ez field by Ez field and CIGAR by CIGAR."""
+    import numpy as np
+    from chip_smoke import _mutate_codes
+    from minimap2_chaindp_tpu_torch import native
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
+    rng = np.random.default_rng(31)
+    jobs = []
+    for n in (16352, 16353):
+        t = rng.integers(0, 4, n).astype(np.uint8)
+        q = np.resize(_mutate_codes(rng, t, 0.05, 0.0), n)
+        jobs.append(dict(qseq=q, tseq=t, w=-1, zdrop=400, end_bonus=-1,
+                         flag=0))
+    pk = KPK.pack_jobs(jobs, splice=False)
+    assert [(g["variant"], g["ring"]) for g in pk["groups"]] == \
+        [("global", 32768), ("block", 16384)]
+    mat = K.gen_simple_mat(5, 2, 4)
+    before = dict(KE.ksw_forward.by_variant)
+    got = KE.extd2_batch(jobs, mat, 4, 2, 24, 1, device=cuda)
+    assert KE.ksw_forward.by_variant["block"] == before["block"] + 1
+    assert KE.ksw_forward.by_variant["global"] == before["global"] + 1
+    want = native.extd2_batch_native(jobs, mat, 4, 2, 24, 1)
+    assert want is not None
+    key = lambda g: (g.score, g.max, g.zdropped, g.max_q, g.max_t, g.mqe,
+                     g.mqe_t, g.mte, g.mte_q, g.reach_end, list(g.cigar))
+    assert [key(g) for g in got] == [key(g) for g in want]
 
 
 def test_splice_runtime_on_card_matches_host(cuda):
-    from minimap2_chaindp_tpu import constants as C
-    from minimap2_chaindp_tpu.index.build import build_index
-    from minimap2_chaindp_tpu.io.fastx import read_fastx, read_frags
-    from minimap2_chaindp_tpu.models.host_runtime import HostRuntime
-    from minimap2_chaindp_tpu.options import set_opt
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx, read_frags
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.options import set_opt
     from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
     from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
     data = os.path.join(ROOT, "tests", "data")

@@ -102,7 +102,7 @@ def test_plain_extd2_matches_numpy_model(corpus):
     make, (q, e, q2, e2, a, b) = EXTD2_CORPORA[corpus]
     jobs = make()
     mat = K.gen_simple_mat(5, a, b)
-    got = KE.extd2_batch(jobs, mat, q, e, q2, e2)
+    got = KE.extd2_batch(jobs, mat, q, e, q2, e2, device="cpu")
     for j, (job, g) in enumerate(zip(jobs, got)):
         want = K.extd2(job["qseq"], job["tseq"], mat, q, e, q2, e2,
                        job["w"], job["zdrop"], job["end_bonus"], job["flag"])
@@ -119,7 +119,7 @@ def test_plain_exts2_matches_numpy_model(corpus):
     q, e, q2, noncan, a, b = SPLICE
     jobs = EXTS2_CORPORA[corpus]()
     mat = K.gen_simple_mat(5, a, b)
-    got = KE.exts2_batch(jobs, mat, q, e, q2, noncan)
+    got = KE.exts2_batch(jobs, mat, q, e, q2, noncan, device="cpu")
     for j, (job, g) in enumerate(zip(jobs, got)):
         want = exts2(job["qseq"], job["tseq"], mat, q, e, q2, noncan,
                      job["zdrop"], job["flag"])
@@ -138,7 +138,7 @@ def test_p_budget_splits_launches(monkeypatch):
     assert KPK.split_by_budget(jobs, False, total) == [list(range(6))]
     assert KPK.split_by_budget(jobs, False, 1) == [[i] for i in range(6)]
     mat = K.gen_simple_mat(5, 2, 4)
-    one = KE.extd2_batch(jobs, mat, 4, 2, 24, 1)
+    one = KE.extd2_batch(jobs, mat, 4, 2, 24, 1, device="cpu")
     groups = []
     real_pack = KE.pack_jobs
 
@@ -147,7 +147,7 @@ def test_p_budget_splits_launches(monkeypatch):
         return real_pack(grp, **kw)
     monkeypatch.setattr(KE, "P_BUDGET", 1)
     monkeypatch.setattr(KE, "pack_jobs", pack)
-    cut = KE.extd2_batch(jobs, mat, 4, 2, 24, 1)
+    cut = KE.extd2_batch(jobs, mat, 4, 2, 24, 1, device="cpu")
     assert groups == [1] * 6
     assert [ez_key(g) for g in one] == [ez_key(g) for g in cut]
 
@@ -155,12 +155,12 @@ def test_p_budget_splits_launches(monkeypatch):
 def test_out_of_domain_raises():
     mat = K.gen_simple_mat(5, 2, 40)   # -min(mat) > 2 * (q + e)
     with pytest.raises(ValueError):
-        KE.extd2_batch(TP.gen_jobs(0, 1), mat, 4, 2, 24, 1)
+        KE.extd2_batch(TP.gen_jobs(0, 1), mat, 4, 2, 24, 1, device="cpu")
     with pytest.raises(ValueError):
         KE.extd2_batch([dict(qseq=np.zeros(0, np.uint8),
                              tseq=np.zeros(5, np.uint8), w=-1, zdrop=-1,
                              end_bonus=0, flag=0)],
-                       K.gen_simple_mat(5, 2, 4), 4, 2, 24, 1)
+                       K.gen_simple_mat(5, 2, 4), 4, 2, 24, 1, device="cpu")
 
 
 @pytest.mark.parametrize("flag", [
@@ -181,3 +181,168 @@ def test_donor_acceptor_matches_shared(flag):
             want = make_donor_acceptor(t, noncan, flag)
             assert all(np.array_equal(g, w) and g.dtype == w.dtype
                        for g, w in zip(got, want)), (len(t), noncan)
+
+
+# ------------------------------------------------- launch plan (off the card)
+@pytest.mark.parametrize("lanes,ring,variant", [
+    (31, 64, "block"), (32, 64, "block"), (33, 64, "block"),
+    (64, 64, "block"), (65, 128, "block"), (256, 256, "block"),
+    (257, 512, "block"), (512, 512, "block"), (513, 1024, "block"),
+    (16383, 16384, "block"), (16384, 16384, "block"),
+    (16385, 32768, "global")])
+def test_variant_of_lanes(lanes, ring, variant):
+    assert KPK.ring_of(lanes) == ring
+    assert KPK.variant_of(lanes) == variant
+    # 14 bytes a lane: the widest shared-memory ring fits one block's 227 KB
+    assert variant == "global" or ring * 14 <= 232448
+    # half a ring of threads, 64 to 512
+    assert KPK.block_threads(ring) == min(512, max(64, ring // 2))
+
+
+@pytest.mark.parametrize("n,w,splice,lanes,variant", [
+    (224, -1, False, 256, "block"),      # a ring boundary
+    (225, -1, False, 272, "block"),
+    (250, 223, False, 256, "block"),     # the band, not the length, sets
+    (250, 224, False, 272, "block"),     # the ring
+    (253, 100, False, 144, "block"),
+    (254, 100, False, 144, "block"),
+    (224, -1, True, 256, "block"),
+    (225, -1, True, 272, "block"),
+    (16352, -1, False, 16384, "block"),  # the shared-memory limit
+    (16353, -1, False, 16400, "global"),
+    (16352, -1, True, 16384, "block"),
+    (16353, -1, True, 16400, "global")])
+def test_variant_of_packed_job(n, w, splice, lanes, variant):
+    rng = np.random.default_rng(n)
+    job = dict(qseq=rng.integers(0, 4, n).astype(np.uint8),
+               tseq=rng.integers(0, 4, n + 7).astype(np.uint8), w=w,
+               zdrop=100, end_bonus=-1,
+               flag=K.KSW_EZ_SPLICE_FOR if splice else 0)
+    pk = KPK.pack_jobs([job], splice=splice, noncan=9 if splice else 0)
+    assert int(pk["meta"][0, KPK.M_LANES]) == lanes
+    # the rows of one anti-diagonal never outgrow the ring: the widest
+    # aligned band and the score block tail
+    assert lanes >= KPK.n_col_of(n, n + 7, max(n, n + 7) if w < 0 else w,
+                                 splice) + 16
+    (g,) = pk["groups"]
+    assert g["variant"] == variant == KPK.variant_of(lanes)
+    assert g["count"] == 1 and g["ring"] == KPK.ring_of(lanes)
+    assert g["threads"] == {"global": 512,
+                            "block": KPK.block_threads(g["ring"])}[variant]
+
+
+def test_block_threads():
+    assert [KPK.block_threads(r) for r in (64, 128, 512, 1024, 2048, 16384)] \
+        == [64, 64, 256, 512, 512, 512]
+
+
+def mixed_wave():
+    """Narrow, wide and tiny jobs in the caller's order: rings of 64 to
+    1024 lanes, short and long jobs, equal lengths among them."""
+    rng = np.random.default_rng(23)
+    jobs = TP.gen_jobs(6, 5, tlen_rng=(20, 90))
+    for n, w in ((260, -1), (40, 10), (300, 250), (260, -1), (30, 25),
+                 (520, 600)):
+        t = rng.integers(0, 4, n).astype(np.uint8)
+        jobs.append(dict(qseq=TP.mut(rng, t), tseq=t, w=w, zdrop=400,
+                         end_bonus=-1, flag=0))
+    jobs[3] = dict(jobs[3], flag=K.KSW_EZ_SCORE_ONLY)
+    return jobs
+
+
+def test_launch_plan_orders_longest_first():
+    pk = KPK.pack_jobs(mixed_wave(), splice=False)
+    meta, order, groups = (pk[k] for k in ("meta", "order", "groups"))
+    R = len(meta)
+    rows = meta[:, KPK.M_QLEN] + meta[:, KPK.M_TLEN] - 1
+    assert order.dtype == np.int32 and len(order) == 2 * R
+    # the groups partition the jobs; the walk takes every job once more
+    assert sorted(order[:R]) == list(range(R)) == sorted(order[R:])
+    # one block-per-job launch with the ring of the widest job
+    assert [(g["variant"], g["ring"], g["threads"], g["start"], g["count"])
+            for g in groups] == [("block", 1024, 512, 0, R)]
+    for sl in (order[:R], order[R:]):
+        r = rows[sl]
+        assert (np.diff(r) <= 0).all()                 # longest first
+        ties = np.diff(r) == 0
+        assert (np.diff(sl)[ties] > 0).all()           # stable among equals
+    rings = [KPK.ring_of(x) for x in meta[:, KPK.M_LANES]]
+    assert max(rings) == 1024 and min(rings) == 64
+    # the narrow jobs alone: a launch sized for them
+    narrow = [j for j in range(R) if rings[j] <= 128]
+    assert 4 < len(narrow) < R
+    _o, (g,) = KPK.launch_plan(meta[narrow])
+    assert (g["variant"], g["ring"], g["threads"], g["count"]) == \
+        ("block", 128, 64, len(narrow))
+    # the inverse: every job keeps its own row, offsets and bytes
+    inv = np.empty(R, dtype=np.int64)
+    inv[order[:R]] = np.arange(R)
+    assert (order[:R][inv] == np.arange(R)).all()
+    assert (np.diff(meta[:, KPK.M_OPOFF]) == rows[:-1] + 1).all()
+    assert (np.diff(pk["poff"]) == [
+        0 if meta[j, KPK.M_SCONLY] else rows[j] * meta[j, KPK.M_NCOL]
+        for j in range(R - 1)]).all()
+    with pytest.raises(ValueError):
+        KPK.launch_plan(meta, force="warp")       # no such variant
+    o, (g,) = KPK.launch_plan(meta, force="global")
+    assert (g["variant"], g["count"], g["start"]) == ("global", R, 0)
+    assert (o[R:] == order[R:]).all()
+    # a job too wide for shared memory takes the device-memory launch,
+    # first; the others keep theirs
+    wide = meta.copy()
+    wide[2, KPK.M_LANES] = KPK.SMEM_RING_MAX + 1
+    o, gs = KPK.launch_plan(wide)
+    assert [(g["variant"], g["ring"], g["start"], g["count"]) for g in gs] \
+        == [("global", 2 * KPK.SMEM_RING_MAX, 0, 1),
+            ("block", 1024, 1, R - 1)]
+    assert o[0] == 2 and sorted(o[:R]) == list(range(R))
+    with pytest.raises(ValueError):
+        KPK.launch_plan(wide, force="block")      # job 2 does not fit
+    o, gs = KPK.launch_plan(wide[[2] + narrow])
+    assert [(g["variant"], g["ring"]) for g in gs] == \
+        [("global", 2 * KPK.SMEM_RING_MAX), ("block", 128)]
+
+
+def _raw(pk, gaps, mat, splice, groups, order):
+    """Plain forward and walk over `pk` under the given launch groups:
+    (p, ez with fin, ops)."""
+    q, e, q2, e2, lt, ld = gaps
+    ts = {k: torch.from_numpy(pk[k]) for k in KE.TENSOR_KEYS}
+    ts["order"] = torch.from_numpy(order)
+    scoring = (q, e, q2, e2, int(mat[0]), int(mat[1]),
+               -e if splice else -e2, lt, ld)
+    p, ez = KE.ksw_forward(*(ts[k] for k in KE.TENSOR_KEYS), groups=groups,
+                           scoring=scoring, splice=splice,
+                           p_bytes=pk["p_bytes"], t_total=pk["t_total"],
+                           band_max=pk["band_max"], rows_max=pk["rows_max"])
+    ops = KE.ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez,
+                      splice=splice, ops_total=pk["ops_total"])
+    return p.numpy(), ez.numpy(), ops.numpy()
+
+
+def test_split_wave_equals_unsplit_wave():
+    """A mixed wave cut into its launch groups gives the ez rows, the
+    backtrack bytes, the step codes and the CIGARs of the same wave as one
+    group, in the caller's order, and the numpy model's results."""
+    q, e, q2, e2, a, b = EXTD2
+    jobs = mixed_wave()
+    mat = K.gen_simple_mat(5, a, b)
+    pk = KPK.pack_jobs(jobs, splice=False)
+    assert len(pk["groups"]) == 1
+    gaps = KPK.gap_params(q, e, q2, e2, False)
+    whole = _raw(pk, gaps, mat, False, pk["groups"], pk["order"])
+    # the plan of the same wave had two of its jobs been too wide for
+    # shared memory: two launches
+    wide = pk["meta"].copy()
+    wide[[1, 7], KPK.M_LANES] = KPK.SMEM_RING_MAX + 1
+    order2, groups2 = KPK.launch_plan(wide)
+    assert [(g["variant"], g["count"]) for g in groups2] == \
+        [("global", 2), ("block", len(jobs) - 2)]
+    split = _raw(pk, gaps, mat, False, groups2, order2)
+    for name, x, y in zip(("p", "ez", "ops"), split, whole):
+        assert np.array_equal(x, y), name
+    got = KE.extd2_batch(jobs, mat, q, e, q2, e2, device="cpu")
+    for j, (job, g) in enumerate(zip(jobs, got)):
+        want = K.extd2(job["qseq"], job["tseq"], mat, q, e, q2, e2,
+                       job["w"], job["zdrop"], job["end_bonus"], job["flag"])
+        assert ez_key(g) == ez_key(want), f"job {j}"

@@ -26,16 +26,16 @@ def _port_raw(jobs, mat, gaps, splice, noncan=0):
     """The port's plain forward and walk on CPU tensors: (ez, ops, meta)."""
     pk = KPK.pack_jobs(jobs, splice=splice, noncan=noncan)
     q, e, q2, e2, lt, ld = gaps
-    ts = {k: torch.from_numpy(pk[k]) for k in
-          ("tseq", "qrev", "dac", "meta", "poff")}
+    ts = {k: torch.from_numpy(pk[k]) for k in KE.TENSOR_KEYS}
     scoring = (q, e, q2, e2, int(mat[0]), int(mat[1]),
                -e if splice else -e2, lt, ld)
-    p, ez = KE.ksw_forward(ts["tseq"], ts["qrev"], ts["dac"], ts["meta"],
-                           ts["poff"], scoring=scoring, splice=splice,
-                           p_bytes=pk["p_bytes"], t_total=pk["t_total"],
-                           band_max=pk["band_max"], rows_max=pk["rows_max"])
-    ops = KE.ksw_walk(p, ts["poff"], ts["meta"], ez, splice=splice,
-                      ops_total=pk["ops_total"])
+    p, ez = KE.ksw_forward(*(ts[k] for k in KE.TENSOR_KEYS),
+                           groups=pk["groups"], scoring=scoring,
+                           splice=splice, p_bytes=pk["p_bytes"],
+                           t_total=pk["t_total"], band_max=pk["band_max"],
+                           rows_max=pk["rows_max"])
+    ops = KE.ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez,
+                      splice=splice, ops_total=pk["ops_total"])
     return ez.numpy(), ops.numpy(), pk["meta"]
 
 
@@ -68,7 +68,7 @@ def _pallas_and_port(monkeypatch, mode, backtrack):
         mat = K.gen_simple_mat(5, a, b)
         pal = KP.extd2_batch(jobs, mat, q, e, q2, e2, interpret=True,
                              backtrack=backtrack)
-        port = KE.extd2_batch(jobs, mat, q, e, q2, e2)
+        port = KE.extd2_batch(jobs, mat, q, e, q2, e2, device="cpu")
         raw = _port_raw(jobs, mat, KPK.gap_params(q, e, q2, e2, False),
                         False)
     else:
@@ -77,7 +77,7 @@ def _pallas_and_port(monkeypatch, mode, backtrack):
         mat = K.gen_simple_mat(5, a, b)
         pal = KP.exts2_batch(jobs, mat, q, e, q2, noncan, interpret=True,
                              backtrack=backtrack)
-        port = KE.exts2_batch(jobs, mat, q, e, q2, noncan)
+        port = KE.exts2_batch(jobs, mat, q, e, q2, noncan, device="cpu")
         raw = _port_raw(jobs, mat, KPK.gap_params(q, e, q2, 0, True), True,
                         noncan)
     return (pal, [np.asarray(x) for x in seen["raw"]], port) + raw
