@@ -51,7 +51,6 @@ CHAIN_REPLACES = "minimap2_chaindp_tpu/ops/chain_pallas.py:116"
 KSW_SOURCE = "minimap2_chaindp_tpu_torch/csrc/ksw2.cu"
 KSW_REPLACES = "minimap2_chaindp_tpu/ops/ksw2_pallas.py:238"
 WALK_REPLACES = "minimap2_chaindp_tpu/ops/ksw2_pallas.py:90"
-FIELDS = ("xhi", "rpos", "qpos", "span", "sid", "stw")
 
 # The card's peaks for the kernels' bounds: NVIDIA's H100 SXM data sheet
 # gives 3.35 TB/s of device memory; the integer rate is 132 SMs x 64 INT32
@@ -74,12 +73,33 @@ INT32_OPS_S = 132 * 64 * 1.98e9
 # and adds the donor and acceptor signals (+3): 47. A job with the
 # approximate maximum keeps no H row (-4); a score-only job keeps no origin
 # and no flags (-16, exts2 -12). A walk step: the band of its row, the
-# address, the state machine, i and j. A candidate pair in csrc/chain_dp.cu.
+# address, the state machine, i and j.
+# A candidate pair (i, j) of the chaining recurrence, single-segment mode:
+# dr, dq 2; dd = |dr - dq| 2; validity (j >= st, dr != 0, dq - 1 below the
+# smaller distance bound unsigned: subtract and compare, dd <= bw, three
+# ands) 8; min(dq, dr, span) 2; c_lin (to float, multiply, truncate, two
+# exception compares and selects) 7; ilog2 (to float, maximum with 1, shift,
+# subtract the bias) 4; the gap cost c_lin + (ilog2 >> 1) 2; score - cost 1;
+# + f[j] 1; the running maximum with its j (compare, two selects) 3; the
+# count of valid candidates above the best (count, snapshot select) 2: 34.
+# The other modes test more: j >= st 1, same segment 1, same x high word 1,
+# dr <= max_dist_x 1, same and dr == 0 2, dq <= 0 1, same and dq >
+# max_dist_y 2, dq > max_dist_x 1, same and dd > bw 2, six ands: 18 in
+# place of 8 (+10); many-segment mode also same and dr > max_dist_y and its
+# and (+3). Both keep a second cost (dd >= 2048, min(c_lin, ilog2), select)
+# 3, the score less it 1 and the score + 1 for dr == 0 across segments 1,
+# and choose among the three: cdna (not same and dr == 0, dr > dq or not
+# same, two selects) 6, many-segment (dr == 0, two selects) 3. cdna 34 +
+# 10 + 5 + 6 = 55, many-segment 34 + 13 + 5 + 3 = 55. The count is of the
+# recurrence, whatever kernel computes it, and does not change with the
+# implementation; until it was itemised the bound took 40 in every mode.
 KSW_OPS_PER_CELL = {False: 55, True: 47}      # extd2, exts2
 KSW_OPS_H_ROW = 4
 KSW_OPS_CIGAR = {False: 16, True: 12}
 WALK_OPS_PER_STEP = 24
-CHAIN_OPS_PER_PAIR = 40
+CHAIN_OPS_PER_PAIR = {"single": 34, "many_segs": 55, "cdna": 55}
+# the chain kernel's throughput shape (phase 3), under map-ont's parameters
+BENCH_READS, BENCH_ANCHORS = 8192, 1024
 
 # the end-to-end workloads: one human chromosome's worth of reference,
 # 1000 ONT-like reads (phase 4), 2000 spliced cDNA reads from gene loci
@@ -179,23 +199,10 @@ def _anchors(rng, n, *, read_len=3000, seg_split=None, big_gaps=False,
     return a[np.argsort(a[:, 0], kind="stable")]
 
 
-def _pack(batch, max_dist_x, max_n):
-    from minimap2_chaindp_tpu_torch.ops.chain_host import split_anchors
-    from minimap2_chaindp_tpu_torch.ops.chain_pack import pack_reads
-    reads = []
-    for a in batch:
-        xhi, rpos, qpos, span, sid = split_anchors(a)
-        reads.append(dict(xhi=xhi, rpos=rpos, qpos=qpos, span=span, sid=sid,
-                          avg_qspan=np.float32(span.sum())
-                          / np.float32(len(a))))
-    packed, nn, w1, exc, host_flag = pack_reads(reads, max_n, max_dist_x)
-    check(not host_flag.any(), "corpus read needs the host path")
-    return [packed[k] for k in FIELDS] + [nn, w1, exc]
-
-
 def kernel_cases():
     """(name, numpy inputs, kwargs) for the listed kernel checks."""
     from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils.chain_corpus import pack_batch
     from minimap2_chaindp_tpu_torch.utils.synth import synth_batch
     _, ont = set_opt("map-ont")
     _, sr = set_opt("sr")
@@ -205,8 +212,8 @@ def kernel_cases():
                   many_segs=False)
     cases = []
     for max_n, seed in ((1024, 1), (4096, 2)):
-        arrs = _pack(synth_batch(64, max_n - 100, seed=seed),
-                     single["max_dist_x"], max_n)
+        arrs = pack_batch(synth_batch(64, max_n - 100, seed=seed), max_n,
+                          single["max_dist_x"])
         cases.append((f"single R=64 max_n={max_n} exc=off", arrs,
                       dict(single, max_n=max_n, use_exc=False)))
         patched = [a.copy() for a in arrs]
@@ -218,14 +225,14 @@ def kernel_cases():
     for _ in range(16):
         n = int(rng.integers(200, 500))
         batch.append(_anchors(rng, n, seg_split=n // 2))
-    cases.append(("many_segs R=16 max_n=512", _pack(batch, 800, 512),
+    cases.append(("many_segs R=16 max_n=512", pack_batch(batch, 512, 800),
                   dict(max_n=512, max_dist_x=800, max_dist_y=600, bw=sr.bw,
                        max_skip=sr.max_chain_skip, is_cdna=False,
                        many_segs=True, use_exc=True)))
     rng = np.random.default_rng(3)
     batch = [_anchors(rng, int(rng.integers(200, 500)), big_gaps=True)
              for _ in range(16)]
-    cases.append(("is_cdna R=16 max_n=512", _pack(batch, 200000, 512),
+    cases.append(("is_cdna R=16 max_n=512", pack_batch(batch, 512, 200000),
                   dict(max_n=512, max_dist_x=200000, max_dist_y=2000,
                        bw=spl.bw, max_skip=spl.max_chain_skip, is_cdna=True,
                        many_segs=False, use_exc=True)))
@@ -233,12 +240,13 @@ def kernel_cases():
     batch = [_anchors(rng, int(rng.integers(150, 500)),
                       noise=0.5 if r % 2 else 0.0) for r in range(16)]
     cases.append(("flagged R=16 max_n=512 max_skip=2",
-                  _pack(batch, single["max_dist_x"], 512),
+                  pack_batch(batch, 512, single["max_dist_x"]),
                   dict(single, max_n=512, max_skip=2, use_exc=True)))
-    # f row in device memory (max_n beyond the shared-memory limit)
-    cases.append(("single R=8 max_n=9216 (f in global memory)",
-                  _pack(synth_batch(8, 9000, seed=5), single["max_dist_x"],
-                        9216), dict(single, max_n=9216, use_exc=True)))
+    # max_n beyond the largest bucket of the runtimes
+    cases.append(("single R=8 max_n=9216 (past the largest bucket)",
+                  pack_batch(synth_batch(8, 9000, seed=5), 9216,
+                             single["max_dist_x"]),
+                  dict(single, max_n=9216, use_exc=True)))
     return cases
 
 
@@ -277,42 +285,66 @@ def chain_bound(ts, kw):
     pairs = int(((i - stw.clamp(min=0)) * live).sum())
     n_bytes = sum(t.numel() * t.element_size() for t in ts) \
         + 2 * stw.numel() * 4 + ts[6].numel() * 4
-    ms, by = _bound(n_bytes, pairs * CHAIN_OPS_PER_PAIR)
+    mode = "cdna" if kw["is_cdna"] else (
+        "many_segs" if kw["many_segs"] else "single")
+    ms, by = _bound(n_bytes, pairs * CHAIN_OPS_PER_PAIR[mode])
     return ms, by, pairs, int(nn.max())
 
 
 def compare_kernel(name, ts, kw, reps=20, phase=3):
     """Kernel vs plain version on the same card tensors: bit-exact f, p and
-    flag, then CUDA-event times and the kernel's bound on these inputs.
-    Returns dict(err, ms, plain_ms, n_flag, bound_ms, bound_by,
-    step_ns)."""
+    flag in the form the wrapper plans and in every form forced, then
+    CUDA-event times (the planned launch and the forced forms in turns,
+    `reps` rounds; the plain version on one run) and the bound on these
+    inputs. Returns dict(err, ms, plain_ms, n_flag, bound_ms, bound_by,
+    step_ns, form, variant_ms, anchors)."""
     import torch
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
-    before = TD.chain_scores_batch.launches
-    got = TD.chain_scores_batch(*ts, **kw)
-    want = TD.chain_scores_batch_ref(*ts, **kw)
+    fn = TD.chain_scores_batch
+    before = (fn.launches, dict(fn.by_form))
+    got = fn(*ts, **kw)
     torch.cuda.synchronize()
-    check(TD.chain_scores_batch.launches == before + 1,
-          f"{name}: the launch counter did not move")
-    err = max(int((g.long() - w.long()).abs().max()) for g, w in
-              zip(got, want))
-    for label, g, w in zip(("f", "p", "flag"), got, want):
-        check(g.shape == w.shape and torch.equal(g, w),
-              f"{name}: kernel {label} differs from the plain version "
-              f"(max abs err {err})")
-    ms = _time_ms(lambda: TD.chain_scores_batch(*ts, **kw), reps)
-    plain_ms = _time_ms(lambda: TD.chain_scores_batch_ref(*ts, **kw), 1,
-                        warm=False)
+    planned = [f for f in TD.FORMS if fn.by_form[f] == before[1][f] + 1]
+    check(fn.launches == before[0] + 1 and len(planned) == 1,
+          f"{name}: the launch counters did not move with the launch")
+    want, plain_ms = _timed(lambda: TD.chain_scores_batch_ref(*ts, **kw))
+
+    def same(out, what):
+        err = max(int((g.long() - w.long()).abs().max())
+                  for g, w in zip(out, want))
+        for label, g, w in zip(("f", "p", "flag"), out, want):
+            check(g.shape == w.shape and torch.equal(g, w),
+                  f"{name}: kernel {label} ({what}) differs from the plain "
+                  f"version (max abs err {err})")
+        return err
+
+    def forced(form):
+        fn.force = form
+        try:
+            return fn(*ts, **kw)
+        finally:
+            fn.force = None
+    err = same(got, "as planned")
+    runs = {"planned": lambda: fn(*ts, **kw)}
+    for form in TD.FORMS:
+        err = max(err, same(forced(form), f"{form} forced"))
+        runs[form] = lambda form=form: forced(form)
+    variant_ms = _in_turns(runs, reps)
+    ms = variant_ms.pop("planned")
     n_flag = int(got[2][:, 0].sum())
     bound_ms, by, pairs, longest = chain_bound(ts, kw)
+    anchors = int(ts[6][:, 0].sum())
     step_ns = ms * 1e6 / max(longest, 1)
-    log(f"phase {phase} {name}: bit-exact (f, p, flag; {n_flag} flagged); "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; bound "
-        f"{bound_ms:.4f} ms by {by} ({pairs} candidate pairs), share "
-        f"{bound_ms / ms:.1%}; longest read {longest} anchors, "
-        f"{step_ns:.1f} ns per anchor")
+    log(f"phase {phase} {name}: bit-exact (f, p, flag; {n_flag} flagged) as "
+        f"planned ({planned[0]}) and forced {sorted(variant_ms)}; kernel "
+        f"{ms:.3f} ms (plain {plain_ms:.1f} ms; forced, in turns with it, "
+        + ", ".join(f"{v} {t:.3f}" for v, t in variant_ms.items())
+        + f" ms); bound {bound_ms:.4f} ms by {by} ({pairs} candidate pairs "
+        f"of {anchors} anchors), share {bound_ms / ms:.1%}; longest read "
+        f"{longest} anchors, {step_ns:.1f} ns per anchor")
     return dict(err=err, ms=ms, plain_ms=plain_ms, n_flag=n_flag,
-                bound_ms=bound_ms, bound_by=by, step_ns=step_ns)
+                bound_ms=bound_ms, bound_by=by, step_ns=step_ns,
+                form=planned[0], variant_ms=variant_ms, anchors=anchors)
 
 
 def _mutate_codes(rng, seq, sub=0.08, ind=0.04):
@@ -643,6 +675,34 @@ def phase_kernels():
         if "flagged" in name:
             flagged = res["n_flag"]
     check(flagged > 0, "the flagged corpus flagged no read")
+    # the boundary corpus (sizes, exact windows, ties, the skip count at
+    # max_skip and one over, exception patches; a window past one stage)
+    from minimap2_chaindp_tpu_torch.utils.chain_corpus import (
+        boundary_cases, pack_batch)
+    for case in boundary_cases(wide_n=3000):
+        ts = [torch.from_numpy(a).cuda() for a in case["arrays"]]
+        res = compare_kernel("boundary " + case["name"], ts, case["kw"],
+                             reps=3)
+        worst = max(worst, res["err"])
+        if "flagged" in case:
+            check((res["n_flag"] > 0) == case["flagged"], "boundary "
+                  f"{case['name']}: {res['n_flag']} reads flagged")
+    # the throughput shape: BENCH_READS x BENCH_ANCHORS under map-ont
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils.synth import synth_batch
+    _, ont = set_opt("map-ont")
+    ts = [torch.from_numpy(a).cuda() for a in pack_batch(
+        synth_batch(BENCH_READS, BENCH_ANCHORS, seed=0), BENCH_ANCHORS,
+        ont.max_gap)]
+    bench = compare_kernel(
+        f"throughput shape R={BENCH_READS} max_n={BENCH_ANCHORS}", ts,
+        dict(max_n=BENCH_ANCHORS, max_dist_x=ont.max_gap,
+             max_dist_y=ont.max_gap, bw=ont.bw, max_skip=ont.max_chain_skip,
+             is_cdna=False, many_segs=False, use_exc=True), reps=5)
+    log(f"phase 3 throughput shape: {bench['anchors'] / bench['ms'] / 1e3:.1f}"
+        f" M anchors/s in the {bench['form']} form")
+    worst = max(worst, bench["err"])
+    del ts
     forced = set()
     for name, jobs, scoring, splice in ksw_cases():
         pk, ts, kw = ksw_inputs(jobs, scoring, splice, "cuda")
@@ -651,7 +711,7 @@ def phase_kernels():
         forced |= set(res["variant_ms"])
     check(forced == set(KPK.VARIANTS), "phase 3 did not launch every "
           f"forward variant: {sorted(forced)}")
-    return worst
+    return worst, bench
 
 
 # ---------------------------------------------------------------- phase 4
@@ -739,6 +799,7 @@ def phase_e2e():
 
     DF.chain_scores_batch = record
     TD.chain_scores_batch.launches = 0
+    TD.chain_scores_batch.by_form = dict.fromkeys(TD.FORMS, 0)
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
@@ -748,6 +809,7 @@ def phase_e2e():
     finally:
         DF.chain_scores_batch = real
     launches = TD.chain_scores_batch.launches
+    by_form = dict(TD.chain_scores_batch.by_form)
     peak = torch.cuda.max_memory_allocated()
 
     c = rt.timers.counters
@@ -765,7 +827,7 @@ def phase_e2e():
     log(f"phase 4 counters: device_reads={c['device_reads']} "
         f"fallback={c['fallback']} native_finish={c['native_finish']} "
         f"staged_frags={c['staged_frags']} chain kernel launches="
-        f"{launches}")
+        f"{launches} {by_form}")
     log(f"phase 4 port stages (host wall clock): {rt.timers.summary()}")
     log(f"phase 4 device memory: index tables {dx.nbytes()} B "
         f"(upload + warm-up {t_up:.1f} s), max_memory_allocated {peak} B")
@@ -775,8 +837,8 @@ def phase_e2e():
     res = compare_kernel(
         "main-path input R={} max_n={}".format(
             biggest["args"][1].shape[0], biggest["kw"]["max_n"]),
-        biggest["args"], biggest["kw"], reps=5, phase=4)
-    return dict(res, launches=launches, ref=ref)
+        biggest["args"], biggest["kw"], reps=11, phase=4)
+    return dict(res, launches=launches, by_form=by_form, ref=ref)
 
 
 # ------------------------------------------------------------- phases 5, 6
@@ -931,6 +993,7 @@ def _staged_run(phase, mi, mo, batches):
         return pk
     RT.chain_scores_batch, KE.pack_jobs = chain, pack
     TD.chain_scores_batch.launches = 0
+    TD.chain_scores_batch.by_form = dict.fromkeys(TD.FORMS, 0)
     KE.ksw_forward.launches = KE.ksw_walk.launches = 0
     KE.ksw_forward.by_variant = dict.fromkeys(KE.ksw_forward.by_variant, 0)
     torch.cuda.reset_peak_memory_stats()
@@ -942,6 +1005,7 @@ def _staged_run(phase, mi, mo, batches):
     finally:
         RT.chain_scores_batch, KE.pack_jobs = real_chain, real_pack
     rec.update(chain=TD.chain_scores_batch.launches,
+               chain_by_form=dict(TD.chain_scores_batch.by_form),
                ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches,
                by_variant=dict(KE.ksw_forward.by_variant),
                peak=torch.cuda.max_memory_allocated(), t_host=t_host,
@@ -964,7 +1028,7 @@ def _staged_run(phase, mi, mo, batches):
         f"launches {rec['ksw']} {rec['by_variant']}, walk launches "
         f"{rec['walk']} (p budget "
         f"{KE.P_BUDGET} B per launch); chain kernel launches "
-        f"{rec['chain']} {rec['modes']}")
+        f"{rec['chain']} {rec['modes']} {rec['chain_by_form']}")
     log(f"phase {phase} port stages (host wall clock): "
         f"{rt.timers.summary()}")
     log(f"phase {phase} device memory: max_memory_allocated {rec['peak']} B")
@@ -980,19 +1044,19 @@ def _staged_run(phase, mi, mo, batches):
 def _main_path_kernels(phase, rec, scoring):
     """Check and time the chain kernel on the largest input of each mode
     the path ran, and the ksw kernels on the largest launch the path
-    made. Returns rec with the chain's worst error and compare_ksw's
-    numbers."""
-    chain_err = 0
+    made. Returns rec with the chain's worst error, compare_kernel's
+    numbers by mode (chain_res) and compare_ksw's numbers."""
+    chain_err, chain_res = 0, {}
     for mode, (_size, args, kw) in sorted(rec["chain_in"].items()):
-        res = compare_kernel(
+        chain_res[mode] = compare_kernel(
             f"main-path {mode} input R={args[1].shape[0]} "
-            f"max_n={kw['max_n']}", args, kw, reps=3, phase=phase)
-        chain_err = max(chain_err, res["err"])
+            f"max_n={kw['max_n']}", args, kw, reps=11, phase=phase)
+        chain_err = max(chain_err, chain_res[mode]["err"])
     jobs, splice = rec["biggest"]
     pk, ts, kw = ksw_inputs(jobs, scoring, splice, "cuda")
     res = compare_ksw(f"main-path input ({len(jobs)} jobs)", pk, ts, kw,
                       reps=3, phase=phase)
-    return dict(rec, **res, chain_err=chain_err)
+    return dict(rec, **res, chain_err=chain_err, chain_res=chain_res)
 
 
 def phase_splice(ref):
@@ -1040,6 +1104,15 @@ def phase_paired(ref):
         6, rec, (mo.q, mo.e, mo.q2, mo.e2, mo.a, mo.b))
 
 
+def _chain_fields(tag, res):
+    """compare_kernel's numbers under the names of one more input."""
+    return {f"ms_{tag}": res["ms"], f"plain_ms_{tag}": res["plain_ms"],
+            f"bound_ms_{tag}": res["bound_ms"],
+            f"bound_by_{tag}": res["bound_by"],
+            f"step_ns_{tag}": res["step_ns"], f"form_{tag}": res["form"],
+            f"variant_ms_{tag}": res["variant_ms"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1051,7 +1124,7 @@ def main() -> int:
     try:
         card = phase_env()
         build_s = phase_build()
-        worst = phase_kernels()
+        worst, bench = phase_kernels()
         e2e = phase_e2e()
         spl = phase_splice(e2e["ref"])
         pe = phase_paired(e2e["ref"])
@@ -1070,7 +1143,15 @@ def main() -> int:
                             pe["chain_err"]), "ms": e2e["ms"],
          "plain_ms": e2e["plain_ms"], "bound_ms": e2e["bound_ms"],
          "bound_by": e2e["bound_by"], "library_ms": None,
-         "step_ns": e2e["step_ns"]},
+         "step_ns": e2e["step_ns"], "form": e2e["form"],
+         "variant_ms": e2e["variant_ms"],
+         "launches_by_form": {f: e2e["by_form"][f] + spl["chain_by_form"][f]
+                              + pe["chain_by_form"][f]
+                              for f in e2e["by_form"]},
+         **_chain_fields("phase5", spl["chain_res"]["cdna"]),
+         **_chain_fields("phase6", pe["chain_res"]["many_segs"]),
+         **_chain_fields("bench", bench),
+         "anchors_per_s_bench": bench["anchors"] / bench["ms"] * 1e3},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,
          "replaces": KSW_REPLACES, "launches": spl["ksw"] + pe["ksw"],
          "max_abs_err": err, "ms": spl["ms"], "plain_ms": spl["plain_ms"],

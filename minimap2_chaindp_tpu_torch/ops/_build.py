@@ -115,7 +115,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build()["path"])
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.mm2tpu_chain_dp.restype = ci
-            lib.mm2tpu_chain_dp.argtypes = [vp] * 12 + [ci] * 8 + [vp]
+            lib.mm2tpu_chain_dp.argtypes = [vp] * 12 + [ci] * 9 + [vp]
             lib.mm2tpu_ksw_forward.restype = ci
             lib.mm2tpu_ksw_forward.argtypes = ([vp] * 10 + [ctypes.c_longlong]
                                                + [ci] * 14 + [vp])

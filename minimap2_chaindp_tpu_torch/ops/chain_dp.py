@@ -10,11 +10,35 @@ of csrc/chain_dp.cu.
 """
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
 
 from .chain_pack import LANES, N_EXC, NEG_INF, TBL
+
+# The kernel's two forms (csrc/chain_dp.cu): "staged", a block a read with
+# producer warps ahead of one consumer warp, for launches whose time is the
+# chain of their longest read; "warp", a warp a read and fewer instructions a
+# candidate, for launches with far more reads than the card holds at once.
+FORMS = ("staged", "warp")
+WARP_FORM_READS_PER_SM = 16
+
+
+def chain_form(n_reads: int, n_sm: int) -> str:
+    """The form a launch of n_reads rows takes on a card with n_sm
+    multiprocessors: staged up to WARP_FORM_READS_PER_SM reads each (three or
+    four rounds of the four to six blocks an SM holds), warp beyond. On an
+    H100 the staged form led at 726, 1024 and 2048 reads of the port's paths
+    and the warp form at 8192 x 1024 anchors (chip_smoke.py times both
+    wherever it checks the kernel)."""
+    return "warp" if n_reads > WARP_FORM_READS_PER_SM * n_sm else "staged"
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 _I32_NAMES = ("xhi", "rpos", "qpos", "span", "sid", "stw", "nn", "exc")
 
@@ -81,19 +105,25 @@ def chain_scores_batch(xhi, rpos, qpos, span, sid, stw, nn, w1, exc, *,
     flag = torch.empty((R, LANES), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        form = chain_scores_batch.force or chain_form(
+            R, _n_sm(torch.cuda.current_device()))
         rc = lib.mm2tpu_chain_dp(
             *(t.data_ptr() for t in (xhi, rpos, qpos, span, sid, stw, nn, w1,
                                      exc, f, p, flag)),
             R, max_n, max_dist_x, max_dist_y, bw, max_skip,
-            _mode(is_cdna, many_segs), int(use_exc), stream)
+            _mode(is_cdna, many_segs), int(use_exc), FORMS.index(form),
+            stream)
     if rc != 0:
         raise RuntimeError(f"chain_dp kernel launch failed: CUDA error {rc}")
     with _launch_lock:   # map_stream launches from two threads
         chain_scores_batch.launches += 1
+        chain_scores_batch.by_form[form] += 1
     return f, p, flag
 
 
 chain_scores_batch.launches = 0
+chain_scores_batch.by_form = dict.fromkeys(FORMS, 0)
+chain_scores_batch.force = None   # a form of FORMS, where a caller times both
 _launch_lock = threading.Lock()
 
 

@@ -182,3 +182,100 @@ def test_chain_wrapper_rejects_bad_inputs():
     before = TD.chain_scores_batch.launches
     TD.chain_scores_batch(*ts, max_n=max_n, **kw)
     assert TD.chain_scores_batch.launches == before   # CPU: no launch
+
+
+# ---- the boundary corpus (utils/chain_corpus.py): the cases that hold the
+# CUDA kernel on the card, here through the plain version, the Pallas kernel
+# in interpret mode and, where w1 and exc are the derived ones, chain_dp
+
+from minimap2_chaindp_tpu_torch.utils import chain_corpus as CC  # noqa: E402
+
+BOUNDARY = CC.boundary_cases()
+
+
+@pytest.mark.parametrize("case", BOUNDARY, ids=[c["name"] for c in BOUNDARY])
+def test_boundary_corpus_ref_matches_pallas(case):
+    arrs, kw = case["arrays"], case["kw"]
+    jf, jp, jflag = (np.asarray(v) for v in CP.chain_scores_batch(
+        *arrs, interpret=True, **kw))
+    tf, tp, tflag = (v.numpy() for v in TD.chain_scores_batch(
+        *(torch.from_numpy(a) for a in arrs), **kw))
+    assert np.array_equal(tf, jf)
+    assert np.array_equal(tp, jp)
+    assert np.array_equal(tflag[:, 0], jflag[:, 0])
+    assert (tflag == tflag[:, :1]).all()
+    n_real = len(case["anchors"])
+    if "flagged" in case:
+        assert bool(tflag[:n_real, 0].any()) == case["flagged"]
+    if not case["exact_host"]:
+        return
+    mo = set_opt("splice" if kw["is_cdna"] else
+                 ("sr" if kw["many_segs"] else None))[1]
+    n_checked = 0
+    for r, a in enumerate(case["anchors"]):
+        n = len(a)
+        if tflag[r, 0] or n == 0:
+            continue
+        host = chain_dp(kw["max_dist_x"], kw["max_dist_y"], kw["bw"],
+                        kw["max_skip"], mo.min_cnt, mo.min_chain_score,
+                        kw["is_cdna"], case["n_segs"], a)
+        cx, cy, cf, cp = compact_from_fpv(a, tf[r, :n], tp[r, :n],
+                                          _v_from_fp(tf[r, :n], tp[r, :n]),
+                                          mo.min_chain_score)
+        dev = chain_backtrack(cx, cy, cf, cp, mo.min_cnt, mo.min_chain_score)
+        assert np.array_equal(host.u, dev.u), f"read {r} u"
+        assert np.array_equal(host.anchors, dev.anchors), f"read {r} anchors"
+        n_checked += 1
+    assert n_checked >= 1
+
+
+@pytest.mark.parametrize("mode", list(CC.MODES))
+def test_boundary_corpus_covers_what_it_says(mode):
+    cases = {c["name"]: c for c in BOUNDARY}
+    # sizes: n = 0, 1 and max_n; reads whose every window is empty
+    c = cases[f"{mode} sizes"]
+    nn, stw = c["arrays"][6][:, 0], c["arrays"][5]
+    assert {0, 1, c["kw"]["max_n"]} <= set(nn.tolist())
+    for r in (3, 4):
+        assert (stw[r, :nn[r]] == np.arange(nn[r])).all()
+    # windows of exactly 31, 32 and 33 candidates
+    c = cases[f"{mode} windows 31/32/33"]
+    for r, w in enumerate((31, 32, 33)):
+        i = np.arange(w, c["arrays"][6][r, 0])
+        assert (i - c["arrays"][5][r, w:len(i) + w] == w).all()
+    # ties: the largest j of the tie group wins, across tiles and lanes,
+    # with exactly max_skip (no flag) or max_skip + 1 (flag) above it
+    for above in (CC.TIE_SKIP, CC.TIE_SKIP + 1):
+        c = cases[f"{mode} ties, {above} above the winner"]
+        f, p, flag = (v.numpy() for v in TD.chain_scores_batch_ref(
+            *(torch.from_numpy(a) for a in c["arrays"]), **c["kw"]))
+        for r, (k_all, k_strong) in enumerate(
+                # winners j = 69 and 32 (32-wide tiles 2 and 1), 39 and 0
+                ((70 + above, 70), (33 + above, 33), (40, 40),
+                 (above + 1, 1))):
+            n = c["arrays"][6][r, 0]
+            assert (p[r, k_all:n] == k_strong - 1).all()
+            assert (f[r, :k_strong] == 200).all()
+            want_flag = k_all - k_strong > c["kw"]["max_skip"]
+            assert bool(flag[r, 0]) == want_flag
+
+
+def test_boundary_corpus_wide_windows():
+    c = BOUNDARY[-1]
+    n = int(c["arrays"][6][0, 0])
+    assert int((np.arange(n) - c["arrays"][5][0, :n]).max()) > 512
+    # the card's version of the case holds a window past one stage of the
+    # kernel (64 tiles of 32 candidates)
+    big = CC.boundary_cases(wide_n=3000)[-1]
+    n = int(big["arrays"][6][0, 0])
+    assert int((np.arange(n) - big["arrays"][5][0, :n]).max()) > 64 * 32
+
+
+@pytest.mark.parametrize("n_reads,n_sm,form", [
+    (1, 132, "staged"), (726, 132, "staged"), (2048, 132, "staged"),
+    (2112, 132, "staged"), (2113, 132, "warp"), (8192, 132, "warp"),
+    (16, 1, "staged"), (17, 1, "warp")])
+def test_chain_form_by_reads_per_sm(n_reads, n_sm, form):
+    assert TD.chain_form(n_reads, n_sm) == form
+    assert form in TD.FORMS
+

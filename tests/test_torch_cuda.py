@@ -33,18 +33,103 @@ def cuda():
 def test_chain_kernel_matches_ref_on_card(cuda):
     from chip_smoke import kernel_cases
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    from minimap2_chaindp_tpu_torch.utils.chain_corpus import boundary_cases
+    cases = [(c["name"], c["arrays"], c["kw"], c.get("flagged"))
+             for c in boundary_cases(wide_n=3000)]
+    cases += [(n, a, k, None) for n, a, k in kernel_cases()]
     n_flagged = 0
-    for name, arrs, kw in kernel_cases():
+    for name, arrs, kw, flagged in cases:
         ts = [torch.from_numpy(a).to(cuda) for a in arrs]
-        before = TD.chain_scores_batch.launches
-        got = TD.chain_scores_batch(*ts, **kw)
         want = TD.chain_scores_batch_ref(*ts, **kw)
-        torch.cuda.synchronize()
-        assert TD.chain_scores_batch.launches == before + 1, name
-        for g, w in zip(got, want):
-            assert torch.equal(g, w), name
-        n_flagged += int(got[2][:, 0].sum())
+        for form in (None,) + TD.FORMS:
+            TD.chain_scores_batch.force = form
+            before = TD.chain_scores_batch.launches
+            try:
+                got = TD.chain_scores_batch(*ts, **kw)
+            finally:
+                TD.chain_scores_batch.force = None
+            torch.cuda.synchronize()
+            assert TD.chain_scores_batch.launches == before + 1, name
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (name, form)
+        if flagged is not None:
+            assert bool(want[2][:, 0].any()) == flagged, name
+        n_flagged += int(want[2][:, 0].sum())
     assert n_flagged > 0
+
+
+def test_chain_launches_from_two_threads_on_card(cuda):
+    """map_stream launches from two threads; the largest buckets (max_n
+    4096 and 8192) side by side, every result against the plain version.
+    Neither form of the kernel opts in to shared memory beyond the default,
+    so no launch can lower a limit under another."""
+    import threading
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils.chain_corpus import pack_batch
+    from minimap2_chaindp_tpu_torch.utils.synth import synth_batch
+    _, ont = set_opt("map-ont")
+    jobs = []
+    for max_n, seed in ((8192, 21), (4096, 22)):
+        kw = dict(max_n=max_n, max_dist_x=ont.max_gap, max_dist_y=ont.max_gap,
+                  bw=ont.bw, max_skip=ont.max_chain_skip, is_cdna=False,
+                  many_segs=False, use_exc=True)
+        ts = [torch.from_numpy(a).to(cuda) for a in pack_batch(
+            synth_batch(8, max_n - 50, seed=seed), max_n, ont.max_gap)]
+        jobs.append((ts, kw, TD.chain_scores_batch_ref(*ts, **kw)))
+    torch.cuda.synchronize()
+    failures = []
+
+    def loop(ts, kw, want):
+        try:
+            for _ in range(25):
+                got = TD.chain_scores_batch(*ts, **kw)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    failures.append(f"max_n={kw['max_n']}: wrong result")
+        except Exception as e:   # a refused launch raises in the wrapper
+            failures.append(f"max_n={kw['max_n']}: {e!r}")
+    for form in (None,) + TD.FORMS:
+        TD.chain_scores_batch.force = form
+        try:
+            threads = [threading.Thread(target=loop, args=j) for j in jobs]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            TD.chain_scores_batch.force = None
+    assert not failures, failures
+
+
+def test_chain_kernel_largest_max_n_on_card(cuda):
+    """max_n = 65536, the contract's limit: the window starts fill the 16
+    bits the staged form packs them into."""
+    import numpy as np
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils.chain_corpus import pack_batch
+    from minimap2_chaindp_tpu_torch.utils.synth import synth_read_anchors
+    _, ont = set_opt("map-ont")
+    max_n = 1 << 16
+    rng = np.random.default_rng(31)
+    batch = [synth_read_anchors(rng, n, read_len=1_000_000)
+             for n in (max_n, max_n - 1, 40000)]
+    ts = [torch.from_numpy(a).to(cuda)
+          for a in pack_batch(batch, max_n, ont.max_gap)]
+    kw = dict(max_n=max_n, max_dist_x=ont.max_gap, max_dist_y=ont.max_gap,
+              bw=ont.bw, max_skip=ont.max_chain_skip, is_cdna=False,
+              many_segs=False, use_exc=True)
+    want = TD.chain_scores_batch_ref(*ts, **kw)
+    assert int(want[1].max()) > 65000          # predecessors up there
+    for form in TD.FORMS:
+        TD.chain_scores_batch.force = form
+        try:
+            got = TD.chain_scores_batch(*ts, **kw)
+        finally:
+            TD.chain_scores_batch.force = None
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), form
 
 
 def test_runtime_on_card_matches_host(cuda, tmp_path):

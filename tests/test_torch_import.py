@@ -44,6 +44,8 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.options",
     "minimap2_chaindp_tpu_torch.pe",
     "minimap2_chaindp_tpu_torch.sdust",
+    "minimap2_chaindp_tpu_torch.utils.chain_corpus",
+    "minimap2_chaindp_tpu_torch.utils.chain_sweep",
     "minimap2_chaindp_tpu_torch.utils.genome_synth",
     "minimap2_chaindp_tpu_torch.utils.ksw_sweep",
     "minimap2_chaindp_tpu_torch.utils.mlog",
