@@ -24,12 +24,21 @@ Phases, each printing its own lines:
      HostRuntime, >= 90% of extension jobs on the card, the chain kernel in
      cdna mode, spliced (N) alignments;
   6. the staged path for PAIRS read pairs under -x sr: byte-identical,
-     extd2 and many_segs chain launches.
+     extd2 and many_segs chain launches;
+  7. the runtime's routings (models/runtime.py, models/steal.py) on the
+     inputs of phases 4-6 at -t 3, each timed after a warm-up beside
+     HostRuntime: phase 4's reads in batches of LANE_BATCH_READS under
+     steal, share, host, device and device with the crossovers of
+     utils/route_sweep.py; phase 6's pairs under steal, share and device
+     with seed collection on the card; phase 5's transcripts under device
+     with the extension crossover. Byte-identical to HostRuntime, the
+     stealing lane takes reads of phase 4, and the card collects the seeds
+     of >= 90% of phase 6's staged units.
 In phases 5 and 6 the chain kernel (on the largest input of each of its
 modes) and the ksw2 kernels (on the largest launch) are checked and timed
 again on the inputs the path gave them.
-Each of phases 4-6 sets the launch counters to 0 just before its run and
-reads them just after.
+Each of phases 4-6, and each run of phase 7, sets the launch counters to
+0 just before its run and reads them just after.
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 
@@ -112,6 +121,17 @@ THREADS = 3
 GENES, TRANSCRIPTS, SPLICE_ERR = 1000, 2000, 0.05
 EXONS, EXON_LEN, INTRON_LEN = (4, 11), (80, 301), (100, 8001)  # [lo, hi)
 PAIRS, PAIR_LEN, FRAG_LEN = 5000, 150, (250, 500)
+# phase 7: phase 4's reads in batches of this many (so that the stream
+# has batches after the first and the stealing lane pulls); the share of
+# the flow under the "share" routing, with the JAX runtime's chain
+# crossover, whose host lane (5 bases an anchor) takes 10 kb reads; and the
+# crossovers that utils/route_sweep.py measured on the H100 (PERF.md §7).
+# The runtime's defaults stay at 0
+LANE_BATCH_READS = 250
+LANE_SHARE = 0.5
+LANE_SHARE_CHAIN_MAX = 2048     # anchors
+LANE_CHAIN_MAX = 1024           # anchors
+LANE_EXT_MAX = 256              # bases of query plus target
 
 
 class SmokeFailure(Exception):
@@ -838,7 +858,8 @@ def phase_e2e():
         "main-path input R={} max_n={}".format(
             biggest["args"][1].shape[0], biggest["kw"]["max_n"]),
         biggest["args"], biggest["kw"], reps=11, phase=4)
-    return dict(res, launches=launches, by_form=by_form, ref=ref)
+    return dict(res, launches=launches, by_form=by_form, ref=ref, mi=mi,
+                mo=mo, reads=reads)
 
 
 # ------------------------------------------------------------- phases 5, 6
@@ -1037,7 +1058,8 @@ def _staged_run(phase, mi, mo, batches):
     for v in sorted(rec["planned"]):
         check(rec["by_variant"][v] > 0, f"phase {phase}: the waves held "
               f"jobs for the {v} forward variant, which never launched")
-    rec.update(jobs=n_jobs, jobs_device=ex.n_device)
+    rec.update(jobs=n_jobs, jobs_device=ex.n_device, mi=mi, mo=mo,
+               batches=batches, host_lines=host_lines)
     return host_lines, port_lines, rt, rec
 
 
@@ -1104,6 +1126,108 @@ def phase_paired(ref):
         6, rec, (mo.q, mo.e, mo.q2, mo.e2, mo.a, mo.b))
 
 
+# ---------------------------------------------------------------- phase 7
+LANE_COUNTERS = ("steal_device_reads", "steal_chunks", "steal_paused",
+                 "steal_dev_fallback", "fast_native", "native_finish",
+                 "staged_frags", "host_chain", "device_seed", "host_seed",
+                 "ext_device", "ext_native")
+
+
+def _lane_run(label, mi, mo, batches, host_lines, t_host, **kw):
+    """One routing over `batches` at -t THREADS: a warm-up batch, then the
+    counters (the runtime's and the kernels' launches) set to 0, the timed
+    map_stream and the counters read. Checks the lines against
+    HostRuntime's. Returns a dict of the run's numbers."""
+    import torch
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    frags = [f for b in batches for f in b]
+    rt = TorchRuntime(mi, mo, device="cuda", n_threads=THREADS, **kw)
+    rt.map_batch(frags[:16])
+    torch.cuda.synchronize()
+    for d in (rt.timers.acc, rt.timers.n, rt.timers.counters):
+        d.clear()
+    ex = rt.align_exec
+    ex.n_device = ex.n_native = ex.n_host = 0
+    TD.chain_scores_batch.launches = 0
+    KE.ksw_forward.launches = KE.ksw_walk.launches = 0
+    t0 = time.perf_counter()
+    lines = [ls for b in rt.map_stream(batches) for ls in b]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rt.close()
+    launches = dict(chain=TD.chain_scores_batch.launches,
+                    ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches)
+    n_diff = sum(a != b for a, b in zip(lines, host_lines))
+    check(len(lines) == len(host_lines) and n_diff == 0,
+          f"phase 7 {label}: {n_diff} fragments' SAM lines differ from "
+          "HostRuntime")
+    c = dict(rt.timers.counters)
+    n = len(frags)
+    cpu = {k: v for k, v in sorted(c.items()) if k.startswith("steal_cpu")}
+    log(f"phase 7 {label} ({rt.describe()}): byte-identical; "
+        f"{n / dt:.1f} fragments/s ({dt:.2f} s) against HostRuntime "
+        f"{n / t_host:.1f} (-t {THREADS}); "
+        + " ".join(f"{k}={c.get(k, 0)}" for k in LANE_COUNTERS)
+        + f"; launches chain {launches['chain']}, ksw2 {launches['ksw']}, "
+        f"walk {launches['walk']}; lane CPU {cpu}")
+    log(f"phase 7 {label} stages (host wall clock): {rt.timers.summary()}")
+    return dict(label=label, rate=n / dt, host_rate=n / t_host, seconds=dt,
+                counters=c, launches=launches)
+
+
+def phase_lanes(e2e, spl, pe):
+    import copy
+    from minimap2_chaindp_tpu_torch.io.fastx import read_frags
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    runs = []
+    # phase 4's reads in batches of LANE_BATCH_READS
+    mo = copy.copy(e2e["mo"])
+    mo.mini_batch_size = LANE_BATCH_READS * READ_LEN
+    batches = list(read_frags([e2e["reads"]], mo.mini_batch_size, False))
+    mi = e2e["mi"]
+    host = HostRuntime(mi, mo, n_threads=THREADS)
+    host.map_batch(batches[0][:16])
+    t0 = time.perf_counter()
+    host_lines = [ls for b in host.map_stream(batches) for ls in b]
+    t_host = time.perf_counter() - t0
+    log(f"phase 7 inputs: phase 4's {len(host_lines)} reads in "
+        f"{len(batches)} batches of {[len(b) for b in batches]} reads")
+    lane = dict(mi=mi, mo=mo, batches=batches, host_lines=host_lines,
+                t_host=t_host)
+    runs.append(_lane_run("phase 4 steal", routing="steal", **lane))
+    check(runs[-1]["counters"].get("steal_device_reads", 0) > 0,
+          "phase 7: the stealing lane took no read of phase 4")
+    runs.append(_lane_run(f"phase 4 share {LANE_SHARE}", routing="share",
+                          flow_share=LANE_SHARE,
+                          native_chain_max=LANE_SHARE_CHAIN_MAX, **lane))
+    runs.append(_lane_run("phase 4 host", routing="host", **lane))
+    runs.append(_lane_run("phase 4 device", **lane))
+    runs.append(_lane_run("phase 4 device crossovers",
+                          native_chain_max=LANE_CHAIN_MAX,
+                          native_ext_max=LANE_EXT_MAX, **lane))
+    # phase 6's pairs and phase 5's transcripts, in their own batches
+    pairs = dict(mi=pe["mi"], mo=pe["mo"], batches=pe["batches"],
+                 host_lines=pe["host_lines"], t_host=pe["t_host"])
+    runs.append(_lane_run("phase 6 steal", routing="steal", **pairs))
+    runs.append(_lane_run(f"phase 6 share {LANE_SHARE}", routing="share",
+                          flow_share=LANE_SHARE,
+                          native_chain_max=LANE_SHARE_CHAIN_MAX, **pairs))
+    runs.append(_lane_run("phase 6 device seeds", device_seeds=True,
+                          **pairs))
+    c = runs[-1]["counters"]
+    n_dev, n_host = c.get("device_seed", 0), c.get("host_seed", 0)
+    check(n_dev + n_host > 0 and n_dev >= 0.9 * (n_dev + n_host),
+          f"phase 7: the card collected the seeds of {n_dev} of "
+          f"{n_dev + n_host} staged units of phase 6")
+    tx = dict(mi=spl["mi"], mo=spl["mo"], batches=spl["batches"],
+              host_lines=spl["host_lines"], t_host=spl["t_host"])
+    runs.append(_lane_run("phase 5 device ext crossover",
+                          native_ext_max=LANE_EXT_MAX, **tx))
+    return runs
+
+
 def _chain_fields(tag, res):
     """compare_kernel's numbers under the names of one more input."""
     return {f"ms_{tag}": res["ms"], f"plain_ms_{tag}": res["plain_ms"],
@@ -1128,6 +1252,7 @@ def main() -> int:
         e2e = phase_e2e()
         spl = phase_splice(e2e["ref"])
         pe = phase_paired(e2e["ref"])
+        phase_lanes(e2e, spl, pe)
     except Exception:
         traceback.print_exc()
         print("[smoke] FAILED", file=sys.stderr)

@@ -11,14 +11,30 @@ minimap2_chaindp_tpu/cli.py:27-314), except `--device`:
   host  HostRuntime, the exact host path
 
 `--mesh` is not supported. There is no silent fallback between devices.
-`-t` sets the threads of index building and of `--device host`; the
-port's runtime maps on two batch threads whatever `-t` is.
+`-t` sets the threads of index building and the host lane: HostRuntime's
+under `--device host`, TorchRuntime's (`-t` - 1 workers for the native
+driver's calls) under `--device cuda|cpu`.
+
+Under `--device cuda|cpu` the JAX package's environment picks the
+runtime's routing (`runtime_kwargs`), so the same environment steers both
+packages the same way:
+
+  MM2TPU_DEVICE_FLOW=0         host   (every batch to a HostRuntime)
+  MM2TPU_FLOW_SHARE=x          share  (a fraction x of the flow's reads)
+  MM2TPU_STEAL=1               steal  (the work-stealing lanes)
+  none of these                device (every read through the card)
+
+MM2TPU_NATIVE_CHAIN_MAX, MM2TPU_NATIVE_EXT_MAX and MM2TPU_DEVICE_SEEDS=1
+set the chain and extension crossovers (default 0: everything to the
+card) and device seed collection. The routing is printed on the
+`[timers]` line.
 Follows minimap2_chaindp_tpu/cli.py:_main (:334-658) without the JAX
 compile cache, the mesh, the link probe and deferred device init.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from collections import deque
 
@@ -106,8 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
     a("-L", dest="long_cigar", action="store_true")
     a("-R", dest="rg", default=None, help="SAM read group line")
     a("-t", dest="threads", type=int, default=3,
-      help="threads for index building and --device host; under --device "
-           "cuda|cpu mapping runs two batch threads whatever -t is")
+      help="threads for index building and the host lane (under --device "
+           "cuda|cpu: -t - 1 workers for the native driver's calls)")
     a("-K", "--mb-size", dest="mini_batch", default=None)
     a("-x", dest="preset", default=None)
     a("--cs", dest="cs", nargs="?", const="short", default=None)
@@ -362,13 +378,34 @@ def _announce(batches):
         yield b
 
 
-def make_runtime(mi, mo, device: str, n_threads: int):
+def runtime_kwargs(env=None) -> dict:
+    """TorchRuntime's routing arguments from the JAX package's environment
+    names (see the module docstring)."""
+    env = os.environ if env is None else env
+    kw = dict(native_chain_max=int(env.get("MM2TPU_NATIVE_CHAIN_MAX", "0")),
+              native_ext_max=int(env.get("MM2TPU_NATIVE_EXT_MAX", "0")),
+              device_seeds=env.get("MM2TPU_DEVICE_SEEDS", "0") == "1")
+    if env.get("MM2TPU_DEVICE_FLOW", "") == "0":
+        kw["routing"] = "host"
+    elif env.get("MM2TPU_FLOW_SHARE", "") != "":
+        share = float(env["MM2TPU_FLOW_SHARE"])
+        if not 0.0 < share < 1.0:
+            raise ValueError(f"MM2TPU_FLOW_SHARE={share} is not in (0, 1)")
+        kw.update(routing="share", flow_share=share)
+    elif env.get("MM2TPU_STEAL", "") == "1":
+        kw["routing"] = "steal"
+    else:
+        kw["routing"] = "device"
+    return kw
+
+
+def make_runtime(mi, mo, device: str, n_threads: int, routing_kw: dict):
     if device == "host":
         from .models.host_runtime import HostRuntime
         return HostRuntime(mi, mo, n_threads=n_threads)
     from .models.runtime import TorchRuntime
     return TorchRuntime(mi, mo, device="cuda:0" if device == "cuda"
-                        else "cpu", n_threads=n_threads)
+                        else "cpu", n_threads=n_threads, **routing_kw)
 
 
 def main(argv=None) -> int:
@@ -397,6 +434,13 @@ def _main(argv=None) -> int:
         print("[ERROR] --mesh is not supported by the PyTorch port",
               file=sys.stderr)
         return 1
+    routing_kw = {}
+    if ns.device != "host":
+        try:
+            routing_kw = runtime_kwargs()
+        except ValueError as e:
+            print(f"[ERROR] the routing environment: {e}", file=sys.stderr)
+            return 1
     if ns.device == "cuda":
         import torch
         if not torch.cuda.is_available():
@@ -489,7 +533,7 @@ def _main(argv=None) -> int:
                                   cur is not None, argv_disp)
             continue
 
-        runtime = make_runtime(mi, mo, ns.device, ns.threads)
+        runtime = make_runtime(mi, mo, ns.device, ns.threads, routing_kw)
         if (mo.flag & C.MM_F_OUT_SAM) and part_no == 1:
             is_multi = cur is not None
             if is_multi:
@@ -517,7 +561,12 @@ def _main(argv=None) -> int:
             b = stash.popleft()
             mlog.mlog("worker_pipeline",
                       f"mapped {sum(len(f.segs) for f in b)} sequences")
-        runtime.timers.report()
+        if hasattr(runtime, "describe"):
+            runtime.close()
+            print(f"[timers] {runtime.describe()} "
+                  f"{runtime.timers.summary()}", file=sys.stderr)
+        else:
+            runtime.timers.report()
     if dump_fp is not None:
         dump_fp.close()
     mlog.banner("2.10-r761", argv_disp)

@@ -5,14 +5,15 @@ Port of minimap2_chaindp_tpu/models/batch_align.py. `run_scheduler` and the
 domain caps are copied from it (:21-23, :200-230). `CudaAlignExecutor`
 takes the place of its DeviceAlignExecutor (:30-197) with the same
 interface (`run(jobs) -> thunks`) and counters (`n_device`, `n_native`,
-`n_host`): jobs inside the kernel's domain go to the CUDA ksw2 kernels
-with the backtrack walk on the card (exts2 under splice scoring, extd2
-otherwise); the rest, and waves with fewer than MIN_DEV_JOBS such jobs, go
-to the native host batch, and to the NumPy model only where the native
-library is missing. There is no native crossover for eligible jobs, no
-timeout and no fallback: a CUDA error raises. `HostAlignExecutor` is the
-host half alone (DeviceAlignExecutor with use_device=False), which
-HostRuntime uses.
+`n_host`): jobs with len(qseq) + len(tseq) <= `native_max` go to the native
+host SIMD batch first (the native crossover, :114-123); of the rest, jobs
+inside the kernel's domain go to the CUDA ksw2 kernels with the backtrack
+walk on the card (exts2 under splice scoring, extd2 otherwise); what is
+left, and waves with fewer than MIN_DEV_JOBS such jobs, goes to the native
+host batch, and to the NumPy model only where the native library is
+missing. There is no timeout and no fallback: a CUDA error raises.
+`HostAlignExecutor` is the host half alone (DeviceAlignExecutor with
+use_device=False), which HostRuntime uses.
 """
 from __future__ import annotations
 
@@ -32,6 +33,9 @@ __all__ = ["CudaAlignExecutor", "HostAlignExecutor", "run_scheduler"]
 MAX_TLEN = 16384
 MAX_QLEN = 16384
 MIN_DEV_JOBS = 4     # tiny waves aren't worth a device launch
+# at or above this crossover the native one-call align skeleton stays on
+# for the executor's opt (models/batch_align.py:25-27, :74-91)
+NATIVE_MAX_DEFAULT = 100000
 
 
 class HostAlignExecutor:
@@ -57,26 +61,34 @@ class HostAlignExecutor:
         if self.timers is not None:
             self.timers.count(f"ext_{name}", n)
 
-    def _run_host(self, jobs, thunks) -> list:
-        """Fill every empty slot of `thunks` from the native batch, or
-        lazily from the NumPy model."""
-        rest = [i for i in range(len(jobs)) if thunks[i] is None]
+    def _run_native(self, jobs, thunks, idxs) -> list:
+        """Fill the slots `idxs` from one native SIMD batch call (exts2
+        under splice scoring, extd2 otherwise; the single-affine q == q2,
+        e == e2 case has none). Returns the slots it left empty."""
         o = self.opt
         nat_fn = None
-        if rest and self.splice:
+        if idxs and self.splice:
             from ..native import exts2_batch_native
             nat_fn = lambda js: exts2_batch_native(js, self.mat, o.q, o.e,
                                                    o.q2, o.noncan)
-        elif rest and not (o.q == o.q2 and o.e == o.e2):
+        elif idxs and not (o.q == o.q2 and o.e == o.e2):
             from ..native import extd2_batch_native
             nat_fn = lambda js: extd2_batch_native(js, self.mat, o.q, o.e,
                                                    o.q2, o.e2)
-        res = nat_fn([jobs[i] for i in rest]) if nat_fn is not None else None
-        if res is not None:
-            for i, ez in zip(rest, res):
-                thunks[i] = (lambda v=ez: v)
-            self._count("native", len(rest))
-            rest = []
+        res = nat_fn([jobs[i] for i in idxs]) if nat_fn is not None else None
+        if res is None:
+            return idxs
+        for i, ez in zip(idxs, res):
+            thunks[i] = (lambda v=ez: v)
+        self._count("native", len(idxs))
+        return []
+
+    def _run_host(self, jobs, thunks) -> list:
+        """Fill every empty slot of `thunks` from the native batch, or
+        lazily from the NumPy model."""
+        rest = self._run_native(
+            jobs, thunks, [i for i in range(len(jobs)) if thunks[i] is None])
+        o = self.opt
         for i in rest:
             thunks[i] = _host_thunk(o, self.mat, jobs[i])
         self._count("host", len(rest))
@@ -87,14 +99,24 @@ class HostAlignExecutor:
 
 
 class CudaAlignExecutor(HostAlignExecutor):
-    """Executes extension-job waves: the CUDA ksw2 kernels on `device`
-    (the plain versions when it is the CPU) for eligible jobs, the native
-    host batch for the rest. `timers`, when given, also receives the
-    counts as ext_device / ext_native / ext_host."""
+    """Executes extension-job waves: the native host batch for jobs of at
+    most `native_max` bases (query plus target), the CUDA ksw2 kernels on
+    `device` (the plain versions when it is the CPU) for the eligible rest,
+    the native host batch for what is left. `timers`, when given, also
+    receives the counts as ext_device / ext_native / ext_host.
 
-    def __init__(self, opt, device="cuda", timers=None):
+    As the JAX executor's `_sync_native_skeleton` does, a crossover below
+    NATIVE_MAX_DEFAULT switches `opt.native_skeleton` off, so that the
+    align skeleton yields its jobs as waves; at or above it the native
+    one-call skeleton aligns the units and no wave reaches the executor.
+    The flag is only ever switched off, never on."""
+
+    def __init__(self, opt, device="cuda", timers=None, native_max: int = 0):
         super().__init__(opt, timers)
         self.device = torch.device(device)
+        self.native_max = int(native_max)
+        if self.native_max < NATIVE_MAX_DEFAULT:
+            opt.native_skeleton = False
         # the kernel modes' domains: splice scoring takes exts2; genomic
         # scoring takes extd2 unless it degenerates to the single-affine
         # extz path; both need the reference's precondition
@@ -113,7 +135,12 @@ class CudaAlignExecutor(HostAlignExecutor):
 
     def run(self, jobs) -> list:
         thunks: list = [None] * len(jobs)
-        dev = [i for i, j in enumerate(jobs) if self._eligible(j)]
+        if self.native_max > 0:
+            self._run_native(jobs, thunks, [
+                i for i, j in enumerate(jobs)
+                if len(j["qseq"]) + len(j["tseq"]) <= self.native_max])
+        dev = [i for i, j in enumerate(jobs)
+               if thunks[i] is None and self._eligible(j)]
         if len(dev) < MIN_DEV_JOBS:
             dev = []
         if dev:

@@ -5,7 +5,8 @@ variant that holds the jobs, forced) and the walk kernel against theirs on
 chip_smoke.ksw_cases() and on jobs at the variants' boundaries (bit-exact
 ez rows, step codes, fin), the shared-memory limit against the native host
 library, and TorchRuntime on cuda against the port's HostRuntime
-(byte-identical lines) under map-ont and -x splice. Skips without a CUDA
+(byte-identical lines) under map-ont and -x splice, and under the stealing
+routing from map_stream's two batch threads. Skips without a CUDA
 device. This file imports neither JAX nor the JAX package, so on a GPU
 host without JAX it runs as
 
@@ -291,3 +292,35 @@ def test_splice_runtime_on_card_matches_host(cuda):
     assert KE.ksw_forward.launches > before[0]
     assert KE.ksw_walk.launches > before[1]
     assert rt.align_exec.n_device > 0
+
+
+def test_steal_routing_on_card_matches_host(cuda, tmp_path):
+    """The stealing lanes on the card from map_stream's two batch threads
+    (two batches of 160 reads, each past the lane's 128-read minimum)."""
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx, read_frags
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    ref, reads = str(tmp_path / "g.fa"), str(tmp_path / "r.fa")
+    G.make_genome(ref, n_contigs=2, contig_len=200_000, seed=45)
+    G.simulate(ref, reads, 320, 2000, 0.10, seed=47)
+    io, mo = set_opt("map-ont")
+    mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+    recs = list(read_fastx(ref))
+    mi = build_index([r.name for r in recs], [r.seq for r in recs],
+                     io.w, io.k, io.flag, io.bucket_bits)
+    mo.update(mi)
+    frags = [f for b in read_frags([reads], mo.mini_batch_size, False)
+             for f in b]
+    batches = [frags[:160], frags[160:]]
+    want = [ls for b in HostRuntime(mi, mo, n_threads=3).map_stream(batches)
+            for ls in b]
+    rt = TorchRuntime(mi, mo, device=cuda, n_threads=3, routing="steal")
+    for _ in range(2):
+        got = [ls for b in rt.map_stream(batches) for ls in b]
+        assert got == want
+    c = rt.timers.counters
+    assert c["fast_native"] + c.get("steal_device_reads", 0) == 2 * len(frags)

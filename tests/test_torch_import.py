@@ -28,6 +28,7 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.models.host_runtime",
     "minimap2_chaindp_tpu_torch.models.pipeline",
     "minimap2_chaindp_tpu_torch.models.runtime",
+    "minimap2_chaindp_tpu_torch.models.steal",
     "minimap2_chaindp_tpu_torch.native",
     "minimap2_chaindp_tpu_torch.ops._build",
     "minimap2_chaindp_tpu_torch.ops.chain",
@@ -50,6 +51,7 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.utils.ksw_sweep",
     "minimap2_chaindp_tpu_torch.utils.mlog",
     "minimap2_chaindp_tpu_torch.utils.prefetch",
+    "minimap2_chaindp_tpu_torch.utils.route_sweep",
     "minimap2_chaindp_tpu_torch.utils.synth",
     "minimap2_chaindp_tpu_torch.utils.timers",
 )
