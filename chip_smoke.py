@@ -34,11 +34,27 @@ Phases, each printing its own lines:
      with the extension crossover. Byte-identical to HostRuntime, the
      stealing lane takes reads of phase 4, and the card collects the seeds
      of >= 90% of phase 6's staged units.
+  8. the rest of the port: (a) the device index build (index/build_device.py)
+     on the card over phase 4's genome against the native host build, both
+     timed; (b) entry() on the card against the kernel's plain version; (c)
+     TorchRuntime(mesh_shape=(1, 1)) on nccl over phase 4's reads, timed in
+     turns with the device routing; (d) a 1 x 2 mesh with both ranks on
+     cuda:0 over gloo over the same reads, the chain kernel held against
+     its plain version on the largest input the mesh gave it, and every
+     bucket's anchors and f/p/flag against the single-card flow step; (e)
+     dryrun_multichip(2) on the card; (f) the host routing and HostRuntime
+     timed in turns (ABAB, then BABA) on phase 7's batches at -t 3.
+     Byte-identical to HostRuntime, >= 90% of the reads chained by the
+     kernel on both meshes.
 In phases 5 and 6 the chain kernel (on the largest input of each of its
 modes) and the ksw2 kernels (on the largest launch) are checked and timed
 again on the inputs the path gave them.
-Each of phases 4-6, and each run of phase 7, sets the launch counters to
-0 just before its run and reads them just after.
+Each of phases 4-6, each run of phase 7 and each path of phase 8 (entry(),
+each timed run of the two meshes, the dry run) sets the launch counters to
+0 just before its run and reads them just after; the kernels line counts
+phases 4, 5, 6 and 8. A mesh's other ranks are processes of their own, but
+in a 1 x I mesh rank 0 runs every chain (the index-0 rank of a data row
+chains it, models/device_pipeline.py).
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 
@@ -132,6 +148,8 @@ LANE_SHARE = 0.5
 LANE_SHARE_CHAIN_MAX = 2048     # anchors
 LANE_CHAIN_MAX = 1024           # anchors
 LANE_EXT_MAX = 256              # bases of query plus target
+# phase 8: the host routing and HostRuntime in turns, ABAB then BABA
+HOST_GAP_ORDER = "ABABBABA"
 
 
 class SmokeFailure(Exception):
@@ -859,7 +877,8 @@ def phase_e2e():
             biggest["args"][1].shape[0], biggest["kw"]["max_n"]),
         biggest["args"], biggest["kw"], reps=11, phase=4)
     return dict(res, launches=launches, by_form=by_form, ref=ref, mi=mi,
-                mo=mo, reads=reads)
+                mo=mo, reads=reads, batches=batches, host_lines=host_lines,
+                rate=n_reads / t_port)
 
 
 # ------------------------------------------------------------- phases 5, 6
@@ -1228,6 +1247,324 @@ def phase_lanes(e2e, spl, pe):
     return runs
 
 
+# ---------------------------------------------------------------- phase 8
+def _sketch_genome(ref, io):
+    """Phase 4's genome's minimizers, sketched by the native library on
+    all cores in contig chunks (as index/build.py does)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from minimap2_chaindp_tpu_torch.constants import seq_to_nt4
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.native import sketch_batch_cat_native
+    seqs = [seq_to_nt4(r.seq) for r in read_fastx(ref)]
+    n = len(seqs)
+    nch = min(os.cpu_count() or 1, n)
+    cuts = [round(i * n / nch) for i in range(nch + 1)]
+
+    def chunk(i):
+        part = seqs[cuts[i]:cuts[i + 1]]
+        offs = np.concatenate([[0], np.cumsum([len(s) for s in part])])
+        return sketch_batch_cat_native(
+            np.concatenate(part), offs.astype(np.int64),
+            np.arange(cuts[i], cuts[i + 1]), io.w, io.k, bool(io.flag & 1))
+    with ThreadPoolExecutor(nch) as ex:
+        return [m for part in ex.map(chunk, range(nch)) for m in part
+                if len(m)]
+
+
+def _phase8_index(e2e):
+    """(a): the device pair sort against the native one, on the same
+    minimizers, each timed with its copies (H2D and D2H included)."""
+    import torch
+    from minimap2_chaindp_tpu_torch.index.build_device import \
+        build_csr_device
+    from minimap2_chaindp_tpu_torch.native import build_csr_native
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    io, _mo = set_opt("map-ont")
+    t0 = time.perf_counter()
+    mvs = _sketch_genome(e2e["ref"], io)
+    t_sk = time.perf_counter() - t0
+    mi = e2e["mi"]
+    times = {"host": [], "cuda": []}
+    for who in ("cuda", "host", "host", "cuda"):     # in turns
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        csr = build_csr_device(mvs, "cuda") if who == "cuda" \
+            else build_csr_native(mvs)
+        times[who].append(time.perf_counter() - t0)
+        for a, b, what in zip(csr, (mi.keys, mi.starts, mi.values),
+                              ("keys", "starts", "values")):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"phase 8 index: the {who} build's {what} differ from "
+                  "phase 4's index")
+        del csr
+    n_pairs = sum(len(m) for m in mvs)
+    log(f"phase 8 (a) index build: {n_pairs} minimizer pairs, "
+        f"{len(mi.keys)} keys (sketch {t_sk:.2f} s); pair sort + run starts "
+        f"on cuda {', '.join(f'{t:.3f}' for t in times['cuda'])} s "
+        "(upload and read-back included), native host "
+        f"{', '.join(f'{t:.3f}' for t in times['host'])} s; keys, starts "
+        "and values equal the host's")
+    return dict(pairs=n_pairs, cuda_s=times["cuda"], host_s=times["host"])
+
+
+def _chain_counts(fn):
+    """Run `fn` with the chain wrapper's counts set to 0 just before it;
+    returns (fn's result, its launches, by form), read just after."""
+    import torch
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    TD.chain_scores_batch.launches = 0
+    TD.chain_scores_batch.by_form = dict.fromkeys(TD.FORMS, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, TD.chain_scores_batch.launches,
+            dict(TD.chain_scores_batch.by_form))
+
+
+def _phase8_entry():
+    """(b): entry() on the card, f against the plain version. Returns the
+    launches and by form of entry()'s call."""
+    from minimap2_chaindp_tpu_torch.entry import CHAIN_KW, entry
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    fn, args = entry()
+    f, launches, by_form = _chain_counts(lambda: fn(*args))
+    check(launches == 1 and f.is_cuda,
+          "phase 8 entry() did not launch the chain kernel")
+    want = TD.chain_scores_batch_ref(*args, max_n=f.shape[1], **CHAIN_KW)[0]
+    err = int((f.long() - want.long()).abs().max())
+    check(err == 0, f"phase 8 entry(): f differs from the plain version "
+          f"by {err}")
+    log(f"phase 8 (b) entry(): f {tuple(f.shape)} on {f.device} from the "
+        "CUDA kernel, equal to chain_scores_batch_ref")
+    return launches, by_form
+
+
+def check_mesh_bucket(mi, single, q, kw, out) -> int:
+    """One bucket of a mesh flow (the arrays `q`, arguments `kw` and
+    outputs `out` of its DeviceFlow._launch) against the single-device
+    flow `single` on the same reads, their CSR key positions looked up in
+    `mi`: each read's anchors and f/p over its n anchors, and its flag,
+    must be equal. Returns the reads checked."""
+    import torch
+    rows = int((q["nmv"][:, 0] > 0).sum())
+    qs = {k: v for k, v in q.items() if k not in ("qhi", "qlo", "nmv")}
+    qs["qposidx"] = np.full(q["qhi"].shape, -1, np.int32)
+    for r in range(rows):
+        m = int(q["nmv"][r, 0])
+        key = ((q["qhi"][r, :m].astype(np.int64) + 0x80000000)
+               .astype(np.uint64) << np.uint64(32)) \
+            | (q["qlo"][r, :m].astype(np.int64) + 0x80000000) \
+            .astype(np.uint64)
+        pos = np.minimum(np.searchsorted(mi.keys, key), len(mi.keys) - 1)
+        qs["qposidx"][r, :m] = np.where(mi.keys[pos] == key, pos, -1)
+    ref = [o.cpu() for o in single._launch(qs, **kw)]
+    out = [o.cpu() for o in out]
+    for r in range(rows):
+        a = int(q["nn"][r, 0])
+        for i, name in enumerate(("xhi", "xlo", "yhi", "ylo", "f", "p")):
+            check(torch.equal(out[i][r, :a], ref[i][r, :a]),
+                  f"mesh bucket row {r}: {name} differs from the "
+                  "single-device flow")
+        check(int(out[6][r, 0]) == int(ref[6][r, 0]),
+              f"mesh bucket row {r}: the flag differs")
+    return rows
+
+
+def _timed_stream(rt, batches, host_lines, label):
+    """One timed map_stream of `rt` over `batches`, its stage timers and
+    counters and the chain wrapper's counts set to 0 first; the lines are
+    checked against HostRuntime's and >= 90% of the reads must be chained
+    by the kernel. Returns (reads a second, stage timers summary,
+    counters, chain launches, by form)."""
+    for d in (rt.timers.acc, rt.timers.n, rt.timers.counters):
+        d.clear()
+    t0 = time.perf_counter()
+    lines, launches, by_form = _chain_counts(
+        lambda: [ls for b in rt.map_stream(batches) for ls in b])
+    dt = time.perf_counter() - t0
+    n_diff = sum(a != b for a, b in zip(lines, host_lines))
+    check(len(lines) == len(host_lines) and n_diff == 0,
+          f"phase 8 {label}: {n_diff} reads' SAM lines differ from "
+          "HostRuntime")
+    c = dict(rt.timers.counters)
+    check(c.get("device_reads", 0) >= 0.9 * len(lines),
+          f"phase 8 {label}: only {c.get('device_reads', 0)} of "
+          f"{len(lines)} reads chained by the kernel")
+    check(launches > 0, f"phase 8 {label}: no chain kernel launched")
+    return len(lines) / dt, rt.timers.summary(), c, launches, by_form
+
+
+def _phase8_meshes(e2e):
+    """(c) the 1 x 1 nccl mesh in turns with the device routing, both
+    runtimes warmed by one untimed pass; (d) the 1 x 2 mesh on one card
+    over gloo, the chain kernel held against its plain version on the
+    largest input the mesh gave it and every bucket against the
+    single-card flow step. The chain launches counted are the 1 x 1
+    mesh's timed runs and the 1 x 2 mesh's (rank 0 runs every chain of
+    a 1 x I mesh)."""
+    from minimap2_chaindp_tpu_torch.models import device_flow as DF
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    batches, host_lines = e2e["batches"], e2e["host_lines"]
+    n = len(host_lines)
+    rts = {"device": TorchRuntime(e2e["mi"], e2e["mo"], device="cuda",
+                                  n_threads=THREADS),
+           "mesh 1x1": TorchRuntime(e2e["mi"], e2e["mo"], device="cuda",
+                                    n_threads=THREADS, mesh_shape=(1, 1))}
+    try:
+        for label, rt in rts.items():
+            _timed_stream(rt, batches, host_lines, label)       # warm-up
+        check(rts["mesh 1x1"]._mesh.backend == "nccl",
+              "the 1x1 mesh is not on nccl")
+        turns = []
+        launches11, by_form11 = 0, {}
+        for label in ("device", "mesh 1x1", "mesh 1x1", "device",
+                      "device", "mesh 1x1", "mesh 1x1", "device"):
+            rate, summary, c, nl, bf = _timed_stream(rts[label], batches,
+                                                     host_lines, label)
+            turns.append((label, rate))
+            if label == "mesh 1x1":
+                launches11 += nl
+                by_form11 = {f: by_form11.get(f, 0) + bf[f] for f in bf}
+            log(f"phase 8 (c) {label}: {rate:.1f} reads/s; stages (host "
+                f"wall clock) {summary}")
+    finally:
+        for rt in rts.values():
+            rt.close()
+    mesh11 = dict(rts["mesh 1x1"].timers.counters)
+    rates = {k: [r for lab, r in turns if lab == k] for k in rts}
+    log(f"phase 8 (c) mesh 1x1 (nccl): byte-identical, "
+        f"{mesh11['device_reads']} of {n} reads chained by the kernel; "
+        "reads/s in turns: " + ", ".join(f"{lab} {r:.1f}"
+                                         for lab, r in turns)
+        + f"; mesh/device {np.mean(rates['mesh 1x1']) / np.mean(rates['device']):.3f}"
+        f"; mesh_bytes {mesh11.get('mesh_bytes', 0)} (one rank sends "
+        f"nothing to another); chain kernel launches in its 4 timed runs "
+        f"{launches11} {by_form11}")
+
+    # (d) two ranks on cuda:0, the index in two shards, over gloo
+    launched = []
+    biggest = {}
+    real_chain = DF.chain_scores_batch
+
+    def record_chain(*a, **kw):
+        size = a[1].numel()
+        if size > biggest.get("size", 0):
+            biggest.update(size=size, args=a, kw=dict(kw))
+        return real_chain(*a, **kw)
+    frags = [f for b in batches for f in b]
+    rt = TorchRuntime(e2e["mi"], e2e["mo"], device="cuda",
+                      n_threads=THREADS, mesh_shape=(1, 2),
+                      mesh_devices=["cuda:0", "cuda:0"])
+    try:
+        t0 = time.perf_counter()
+        rt.map_batch(frags[:16])
+        t_setup = time.perf_counter() - t0
+        flow = rt._flow
+        real = flow._launch
+
+        def record(q, **kw):
+            out = real(q, **kw)
+            launched.append((q, kw, [o.cpu() for o in out]))
+            return out
+        flow._launch = record
+        DF.chain_scores_batch = record_chain
+        try:
+            rate12, summary, c, launches12, by_form12 = _timed_stream(
+                rt, batches, host_lines, "mesh 1x2")
+        finally:
+            DF.chain_scores_batch = real_chain
+        check(rt._mesh.backend == "gloo", "the 1x2 mesh is not on gloo")
+    finally:
+        rt.close()
+    c = rt.timers.counters
+    n_mesh = n + 16       # the mesh's byte counts cover the warm-up batch
+    # the kernel against its plain version on the mesh's largest input,
+    # then every bucket against the single-card step on the same reads
+    res = compare_kernel(
+        "mesh 1x2 input R={} max_n={}".format(
+            biggest["args"][1].shape[0], biggest["kw"]["max_n"]),
+        biggest["args"], biggest["kw"], reps=11, phase=8)
+    single = DF.DeviceFlow(e2e["mi"], e2e["mo"], device="cuda")
+    n_rows = sum(check_mesh_bucket(e2e["mi"], single, *b) for b in launched)
+    log(f"phase 8 (d) mesh 1x2 (gloo, both ranks on cuda:0): "
+        f"byte-identical, {c['device_reads']} of {n} reads chained by the "
+        f"kernel ({launches12} launches {by_form12}), {len(launched)} "
+        f"buckets ({n_rows} reads) with anchors and f/p/flag equal to the "
+        f"single-card flow; {rate12:.1f} reads/s (set-up with the first 16 "
+        f"reads {t_setup:.1f} s); over its {n_mesh} reads mesh_bytes "
+        f"{c['mesh_bytes'] / n_mesh:.1f} a read, of them all_gather "
+        f"{c['mesh_allgather_bytes'] / n_mesh:.1f}; index shard to rank 1 "
+        f"{c['mesh_table_bytes']} B; stages (host wall clock) {summary}")
+    return dict(rates=rates, mesh11=mesh11, rate12=rate12,
+                bytes12=c["mesh_bytes"] / n_mesh, res=res,
+                launches=launches11 + launches12,
+                by_form={f: by_form11.get(f, 0) + by_form12[f]
+                         for f in by_form12})
+
+
+def _phase8_host_gap(e2e):
+    """(f): the host routing and HostRuntime on phase 7's batches at -t
+    THREADS, warm, in turns ABAB then BABA."""
+    import copy
+    from minimap2_chaindp_tpu_torch.io.fastx import read_frags
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    mo = copy.copy(e2e["mo"])
+    mo.mini_batch_size = LANE_BATCH_READS * READ_LEN
+    batches = list(read_frags([e2e["reads"]], mo.mini_batch_size, False))
+    n = sum(len(b) for b in batches)
+    runs = {"A": TorchRuntime(e2e["mi"], mo, device="cuda",
+                              n_threads=THREADS, routing="host"),
+            "B": HostRuntime(e2e["mi"], mo, n_threads=THREADS)}
+    for rt in runs.values():
+        rt.map_batch(batches[0][:16])
+    rates = {"A": [], "B": []}
+    want = None
+    for who in HOST_GAP_ORDER:
+        t0 = time.perf_counter()
+        lines = [ls for b in runs[who].map_stream(batches) for ls in b]
+        rates[who].append(n / (time.perf_counter() - t0))
+        want = want or lines
+        check(lines == want, "phase 8 (f): the two runtimes' lines differ")
+    runs["A"].close()
+    gap = [a / b - 1 for a, b in zip(rates["A"], rates["B"])]
+    log(f"phase 8 (f) host routing (A) against HostRuntime (B), -t "
+        f"{THREADS}, {HOST_GAP_ORDER}: A "
+        f"{', '.join(f'{r:.1f}' for r in rates['A'])}; B "
+        f"{', '.join(f'{r:.1f}' for r in rates['B'])} reads/s; A/B - 1 by "
+        f"pair: {', '.join(f'{100 * g:+.1f}%' for g in gap)}")
+    return dict(A=rates["A"], B=rates["B"])
+
+
+def phase_rest(e2e):
+    """Phase 8: the device index build, entry(), the meshes, the dry run
+    and the host routing's gap. Returns the chain launches of its paths,
+    each counted from 0 just before the path's run and read just after:
+    entry(), the meshes' timed runs, the dry run."""
+    from minimap2_chaindp_tpu_torch.entry import dryrun_multichip
+    t0 = time.perf_counter()
+    idx = _phase8_index(e2e)
+    per_path = {"entry": _phase8_entry()}
+    meshes = _phase8_meshes(e2e)
+    per_path["meshes"] = (meshes["launches"], meshes["by_form"])
+    t1 = time.perf_counter()
+    line, nl, bf = _chain_counts(lambda: dryrun_multichip(2, "cuda"))
+    check(nl > 0, "the dry run launched no chain kernel")
+    per_path["dryrun"] = (nl, bf)
+    log(f"phase 8 (e) {line} ({time.perf_counter() - t1:.1f} s; chain "
+        f"kernel launches {nl} {bf})")
+    gap = _phase8_host_gap(e2e)
+    launches = sum(nl for nl, _bf in per_path.values())
+    by_form = {f: sum(bf[f] for _nl, bf in per_path.values())
+               for f in per_path["entry"][1]}
+    log(f"phase 8 done in {time.perf_counter() - t0:.1f} s; chain kernel "
+        "launches by path (rank 0's process runs every chain of these "
+        "paths): " + ", ".join(f"{k} {nl} {bf}"
+                               for k, (nl, bf) in per_path.items())
+        + f"; {launches} in all")
+    return dict(launches=launches, by_form=by_form, index=idx,
+                meshes=meshes, gap=gap)
+
+
 def _chain_fields(tag, res):
     """compare_kernel's numbers under the names of one more input."""
     return {f"ms_{tag}": res["ms"], f"plain_ms_{tag}": res["plain_ms"],
@@ -1253,6 +1590,7 @@ def main() -> int:
         spl = phase_splice(e2e["ref"])
         pe = phase_paired(e2e["ref"])
         phase_lanes(e2e, spl, pe)
+        rest = phase_rest(e2e)
     except Exception:
         traceback.print_exc()
         print("[smoke] FAILED", file=sys.stderr)
@@ -1263,18 +1601,21 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "chain_dp", "route": "cuda", "source": CHAIN_SOURCE,
          "replaces": CHAIN_REPLACES,
-         "launches": e2e["launches"] + spl["chain"] + pe["chain"],
+         "launches": e2e["launches"] + spl["chain"] + pe["chain"]
+         + rest["launches"],
          "max_abs_err": max(worst, e2e["err"], spl["chain_err"],
-                            pe["chain_err"]), "ms": e2e["ms"],
+                            pe["chain_err"], rest["meshes"]["res"]["err"]),
+         "ms": e2e["ms"],
          "plain_ms": e2e["plain_ms"], "bound_ms": e2e["bound_ms"],
          "bound_by": e2e["bound_by"], "library_ms": None,
          "step_ns": e2e["step_ns"], "form": e2e["form"],
          "variant_ms": e2e["variant_ms"],
          "launches_by_form": {f: e2e["by_form"][f] + spl["chain_by_form"][f]
-                              + pe["chain_by_form"][f]
+                              + pe["chain_by_form"][f] + rest["by_form"][f]
                               for f in e2e["by_form"]},
          **_chain_fields("phase5", spl["chain_res"]["cdna"]),
          **_chain_fields("phase6", pe["chain_res"]["many_segs"]),
+         **_chain_fields("phase8_mesh", rest["meshes"]["res"]),
          **_chain_fields("bench", bench),
          "anchors_per_s_bench": bench["anchors"] / bench["ms"] * 1e3},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,

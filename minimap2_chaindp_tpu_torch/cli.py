@@ -10,7 +10,15 @@ minimap2_chaindp_tpu/cli.py:27-314), except `--device`:
   cpu   the same paths on the CPU, with the kernels' plain versions
   host  HostRuntime, the exact host path
 
-`--mesh` is not supported. There is no silent fallback between devices.
+`--mesh DATAxINDEX` (e.g. 2x2) runs the fused flow on a mesh of
+DATA x INDEX ranks (parallel/mesh.py): the reads data-parallel over DATA,
+the index key-range-sharded over INDEX, the output unchanged. Under
+`--device cpu` the ranks are CPU processes on gloo; under `--device cuda`
+rank r runs on cuda:r over nccl, and a machine with fewer cards exits
+non-zero ("needs N devices"). The mesh pins the device routing; `--device
+host` ignores it. MM2TPU_DEVICE_INDEX=1 sorts the index's minimizer pairs
+on the run's device (index/build_device.py; the CPU under `--device
+host`). There is no silent fallback between devices.
 `-t` sets the threads of index building and the host lane: HostRuntime's
 under `--device host`, TorchRuntime's (`-t` - 1 workers for the native
 driver's calls) under `--device cuda|cpu`.
@@ -29,7 +37,7 @@ set the chain and extension crossovers (default 0: everything to the
 card) and device seed collection. The routing is printed on the
 `[timers]` line.
 Follows minimap2_chaindp_tpu/cli.py:_main (:334-658) without the JAX
-compile cache, the mesh, the link probe and deferred device init.
+compile cache, the link probe and deferred device init.
 """
 from __future__ import annotations
 
@@ -141,7 +149,9 @@ def build_parser() -> argparse.ArgumentParser:
       help="compute path: cuda (the port's kernels), cpu (the same paths "
            "with plain PyTorch) or host")
     a("--mesh", default=None, metavar="DATAxINDEX",
-      help="(not supported by this port)")
+      help="a mesh of ranks, e.g. 2x2: reads data-parallel over DATA "
+           "ranks, the index key-range-sharded over INDEX ranks; output "
+           "stays byte-identical")
     a("--version", action="version", version=VERSION)
     a("target")
     a("query", nargs="*")
@@ -341,7 +351,8 @@ def apply_args(ns, io: IndexOptions, mo: MapOptions) -> None:
 
 def _index_parts(ns, io):
     """Yield index parts: prebuilt single-part, stock multi-part .mmi, or
-    FASTA split every ~batch_size bases (index.c:459, :921)."""
+    FASTA split every ~batch_size bases (index.c:459, :921). Under
+    MM2TPU_DEVICE_INDEX=1 the pair sort runs on the run's device."""
     from .constants import seq_to_nt4
     from .index.build import build_index
     from .index.serialize import (is_mm2tpu_index, is_mmi_index, load_index,
@@ -355,6 +366,9 @@ def _index_parts(ns, io):
                       "overriding command line", file=sys.stderr)
             yield mi
         return
+    device = False
+    if os.environ.get("MM2TPU_DEVICE_INDEX", "0") == "1":
+        device = "cuda" if ns.device == "cuda" else "cpu"
     names, seqs, plen = [], [], 0
     for r in read_fastx(ns.target):
         names.append(r.name)
@@ -362,11 +376,12 @@ def _index_parts(ns, io):
         plen += len(seqs[-1])
         if plen >= io.batch_size:
             yield build_index(names, seqs, io.w, io.k, io.flag,
-                              io.bucket_bits, n_threads=ns.threads)
+                              io.bucket_bits, n_threads=ns.threads,
+                              device=device)
             names, seqs, plen = [], [], 0
     if names:
         yield build_index(names, seqs, io.w, io.k, io.flag, io.bucket_bits,
-                          n_threads=ns.threads)
+                          n_threads=ns.threads, device=device)
 
 
 def _announce(batches):
@@ -399,13 +414,25 @@ def runtime_kwargs(env=None) -> dict:
     return kw
 
 
-def make_runtime(mi, mo, device: str, n_threads: int, routing_kw: dict):
+def make_runtime(mi, mo, device: str, n_threads: int, routing_kw: dict,
+                 mesh_shape=None):
     if device == "host":
         from .models.host_runtime import HostRuntime
         return HostRuntime(mi, mo, n_threads=n_threads)
     from .models.runtime import TorchRuntime
     return TorchRuntime(mi, mo, device="cuda:0" if device == "cuda"
-                        else "cpu", n_threads=n_threads, **routing_kw)
+                        else "cpu", n_threads=n_threads,
+                        mesh_shape=mesh_shape, **routing_kw)
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    """DATAxINDEX -> (DATA, INDEX); ValueError on anything else."""
+    import re
+    m = re.fullmatch(r"(\d+)x(\d+)", text.lower())
+    if not m:
+        raise ValueError(f"--mesh expects DATAxINDEX (e.g. 4x2), got "
+                         f"'{text}'")
+    return int(m.group(1)), int(m.group(2))
 
 
 def main(argv=None) -> int:
@@ -430,10 +457,16 @@ def _main(argv=None) -> int:
     # a bare --cs must not consume the next token (getopt_long semantics)
     argv = ["--cs=short" if a == "--cs" else a for a in argv]
     ns = build_parser().parse_args(argv)
-    if ns.mesh:
-        print("[ERROR] --mesh is not supported by the PyTorch port",
-              file=sys.stderr)
-        return 1
+    mesh_shape = None
+    if ns.mesh and ns.device != "host":
+        from .parallel.mesh import mesh_devices
+        try:
+            mesh_shape = parse_mesh(ns.mesh)
+            # the card count first: "needs N devices" on any machine
+            mesh_devices(mesh_shape[0] * mesh_shape[1], ns.device)
+        except ValueError as e:
+            print(f"[ERROR] {e}", file=sys.stderr)
+            return 1
     routing_kw = {}
     if ns.device != "host":
         try:
@@ -441,6 +474,10 @@ def _main(argv=None) -> int:
         except ValueError as e:
             print(f"[ERROR] the routing environment: {e}", file=sys.stderr)
             return 1
+        if mesh_shape is not None:
+            # the mesh pins the device routing (the JAX runtime's --mesh)
+            routing_kw.pop("flow_share", None)
+            routing_kw["routing"] = "device"
     if ns.device == "cuda":
         import torch
         if not torch.cuda.is_available():
@@ -533,7 +570,12 @@ def _main(argv=None) -> int:
                                   cur is not None, argv_disp)
             continue
 
-        runtime = make_runtime(mi, mo, ns.device, ns.threads, routing_kw)
+        try:
+            runtime = make_runtime(mi, mo, ns.device, ns.threads, routing_kw,
+                                   mesh_shape)
+        except ValueError as e:
+            print(f"[ERROR] {e}", file=sys.stderr)
+            return 1
         if (mo.flag & C.MM_F_OUT_SAM) and part_no == 1:
             is_multi = cur is not None
             if is_multi:

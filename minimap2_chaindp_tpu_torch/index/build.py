@@ -105,7 +105,7 @@ def build_index(names: Sequence[str],
                 seq_strs: "Sequence[str | np.ndarray]", w: int, k: int,
                 flag: int = 0, bucket_bits: int = 14,
                 n_threads: int = 1,
-                device: bool | None = None) -> MinimizerIndex:
+                device=None) -> MinimizerIndex:
     """Build the CSR minimizer index from reference sequences.
 
     `seq_strs` entries may be ASCII strings or already-nt4-encoded uint8
@@ -121,8 +121,9 @@ def build_index(names: Sequence[str],
     contiguous rid ranges reassembled in rid order.
 
     device=True (or MM2TPU_DEVICE_INDEX=1) runs the minimizer pair sort —
-    the O(n log n) heart of the build — on the accelerator
-    (index/build_device.py); bit-identical CSR, for co-located chips."""
+    the O(n log n) heart of the build — on the card ("cuda"), a torch
+    device (or its name) on that device (index/build_device.py);
+    bit-identical CSR, with no fallback when the device fails."""
     mi = MinimizerIndex(k=k, w=w, flag=flag, b=bucket_bits)
     no_seq = bool(flag & 2)  # MM_I_NO_SEQ: skip the 4-bit reference pack
     total = sum(len(s) for s in seq_strs)
@@ -235,9 +236,8 @@ def build_index(names: Sequence[str],
             csr = acc.finish()
             acc = None
         elif device:
-            raise NotImplementedError(
-                "the accelerator pair sort (index/build_device.py of the "
-                "JAX package) is not ported; build with device=False")
+            from .build_device import build_csr_device
+            csr = build_csr_device(mvs, "cuda" if device is True else device)
         if csr is None:
             from ..native import build_csr_native
             csr = build_csr_native(mvs)

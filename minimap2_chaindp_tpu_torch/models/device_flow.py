@@ -1,11 +1,14 @@
 """Fused device flow in PyTorch: seed collect -> window starts -> chaining
 kernel, one device step per read bucket.
 
-Port of minimap2_chaindp_tpu/models/device_flow.py (single chip). The host
-sketches each read and looks up its CSR key positions; the device expands
-them into anchors, sorts them, computes each anchor's window start and runs
-the chain kernel; anchors, f, p and the flag come back, and the host runs
-the chain bottom half.
+Port of minimap2_chaindp_tpu/models/device_flow.py. The host sketches each
+read and looks up its CSR key positions; the device expands them into
+anchors, sorts them, computes each anchor's window start and runs the
+chain kernel; anchors, f, p and the flag come back, and the host runs the
+chain bottom half. With a mesh (parallel/mesh.Mesh) the CSR is
+key-range-sharded over its index axis and each bucket runs the sharded
+step (models/device_pipeline.sharded_flow_step), which ships each
+minimizer's split key instead of its position; the output is the same.
 
 Host-side statistics (exact anchor count, span sum, over-occurrence mask)
 make the flow synchronization-free: bucket routing, overflow fallback and
@@ -26,7 +29,7 @@ from ..ops.chain_dp import chain_scores_batch
 from ..ops.chain_host import _v_from_fp, compact_from_fpv
 from ..ops.seeds import SeedHits
 from ..ops.seeds_device import (PAD_HI, SIGN, _collect_dev_pos, _rep_len,
-                                device_index_cached)
+                                device_index_cached, split_u64)
 from ..utils.timers import Timers
 
 # (minimizer-count, anchor-capacity) buckets: a read takes the smallest
@@ -60,6 +63,25 @@ def host_seed_stats(mi, mv: np.ndarray, max_occ: int):
     occ = np.where(found & ~over, cnt, 0)
     span = (mv[:, 0] & np.uint64(0xFF)).astype(np.int64)
     return int(occ.sum()), int((span * occ).sum()), over, pos_c, occ
+
+
+def derive_queries(qhi, qlo, qspan8, nmv):
+    """The key path's query masks derived on the device (port of
+    minimap2_chaindp_tpu/models/device_flow.py:71-90): valid = slot <
+    count, tandem = neighbour key equality (the host packer's same-key
+    marking), seg = 0 (single-segment flow); spans ride as uint8 (HPC
+    spans reach 255, sketch.c:111). Returns (qvalid, qspan, qtnd, qseg)."""
+    R, M = qhi.shape
+    mslot = torch.arange(M, dtype=torch.int32, device=qhi.device)[None, :]
+    qvalid = mslot < nmv
+    qspan = qspan8.to(torch.int32)
+    same_r = qvalid[:, 1:] & (qhi[:, 1:] == qhi[:, :-1]) \
+        & (qlo[:, 1:] == qlo[:, :-1])
+    z1 = torch.zeros((R, 1), dtype=torch.bool, device=qhi.device)
+    qtnd = (torch.cat([same_r, z1], dim=1)
+            | torch.cat([z1, same_r], dim=1)).to(torch.int32)
+    qseg = torch.zeros((R, M), dtype=torch.int32, device=qhi.device)
+    return qvalid, qspan, qtnd, qseg
 
 
 def derive_queries_pos(qposidx: torch.Tensor):
@@ -127,17 +149,54 @@ def flow_mode_ok(opt) -> bool:
 
 class DeviceFlow:
     """Dispatcher for the fused collect+chain device step on one device
-    (`"cuda"`, `"cuda:N"` or `"cpu"`; the CPU runs the plain versions)."""
+    (`"cuda"`, `"cuda:N"` or `"cpu"`; the CPU runs the plain versions), or
+    with `mesh` on a parallel/mesh.Mesh (JAX DeviceFlow(mesh=...),
+    device_flow.py:208-283): the CSR tables are cut into the mesh's index
+    shards and sent to its ranks once, each bucket's rows split over its
+    data ranks, and a read whose hits crowd one shard past the bucket's
+    per-shard capacity is left to the staged path, as in JAX."""
 
-    def __init__(self, mi, opt, device="cuda", ship_anchors: bool = True):
+    def __init__(self, mi, opt, device="cuda", ship_anchors: bool = True,
+                 mesh=None):
         self.mi = mi
         self.opt = opt
-        self.device = torch.device(device)
+        self.mesh = mesh
         # ship_anchors=False: the host re-derives the anchors from its own
         # CSR copy (the same collect the host path runs) and only f/p/flag
         # are read back
         self.ship_anchors = ship_anchors
-        self.dx = device_index_cached(mi, self.device)
+        if mesh is None:
+            self.device = torch.device(device)
+            self.dx = device_index_cached(mi, self.device)
+        else:
+            from ..ops.seeds_device import shard_index_tables
+            self.device = mesh.device
+            self.n_index, self.n_data = mesh.n_index, mesh.n_data
+            (khi, klo, starts, vhi, vlo, _kp, _vp,
+             cuts) = shard_index_tables(mi, self.n_index)
+            mesh.put("flow", dict(khi=khi, klo=klo, starts=starts, vhi=vhi,
+                                  vlo=vlo))
+            self._cuts = np.asarray(cuts, dtype=np.int64)  # key-pos ranges
+
+    def _launch(self, q: dict, *, cap, gq, gr, use_exc):
+        """One bucket's device step. `q` holds the bucket's host arrays:
+        qposidx (single device) or qhi/qlo/nmv (mesh), and qpos, qspan8,
+        qls, nn, w1, exc. Returns (xhi, xlo, yhi, ylo, f, p, flag)."""
+        opt = self.opt
+        kw = dict(cap=cap, max_dist_x=gr, max_dist_y=gq, bw=opt.bw,
+                  max_skip=opt.max_chain_skip, use_exc=use_exc)
+        if self.mesh is not None:
+            from .device_pipeline import sharded_flow_step
+            return tuple(self.mesh.step(
+                sharded_flow_step,
+                {k: q[k] for k in ("qhi", "qlo", "qpos", "qspan8", "nmv",
+                                   "qls", "nn", "w1", "exc")},
+                table="flow", max_occ=opt.mid_occ, **kw))
+        to_dev = lambda a: torch.from_numpy(a).to(self.device)
+        return flow_step(self.dx, to_dev(q["qposidx"]), to_dev(q["qpos"]),
+                         to_dev(q["qspan8"]), opt.mid_occ, to_dev(q["qls"]),
+                         to_dev(q["nn"]), to_dev(q["w1"]), to_dev(q["exc"]),
+                         **kw)
 
     def run(self, units, timers: Timers | None = None) -> dict[int, Chains]:
         """Run eligible units through the fused device step.
@@ -170,6 +229,18 @@ class DeviceFlow:
             cb = next((c for c in CAP_BUCKETS if n <= c), None)
             if cb is None:
                 continue  # anchor overflow -> staged path
+            if self.mesh is not None:
+                # capacity-bounded routing: every shard's compact hit
+                # buffer (cap / n_index slots) must hold this read's hits
+                # on that shard: bump the bucket or leave the read
+                sh_id = np.searchsorted(self._cuts[1:-1], pos, side="right")
+                per_shard = np.bincount(sh_id, weights=occ,
+                                        minlength=self.n_index)
+                need = int(per_shard.max()) * self.n_index
+                cb = next((c for c in CAP_BUCKETS
+                           if n <= c and need <= c), None)
+                if cb is None:
+                    continue  # shard-skewed read -> staged path
             avg = np.float32(span_sum) / np.float32(n)
             if avg < 1.6:  # c_log shortcut domain (chain_pack)
                 continue
@@ -179,43 +250,50 @@ class DeviceFlow:
             key = (mb, cb, info.gap_qry, info.gap_ref)
             by_bucket.setdefault(key, []).append((k, w1, excl))
 
-        dev = self.device
         staged = []
+        mesh = self.mesh
         for (mb, cb, gq, gr), entries in sorted(by_bucket.items()):
-            R = len(entries)
-            qposidx = np.full((R, mb), -1, np.int32)
-            qpos = np.zeros((R, mb), np.int32)
-            qspan8 = np.zeros((R, mb), np.uint8)  # UNSIGNED: HPC spans reach
-            #   255 (sketch.c:111 kmer_span < 256); int8 would wrap >=128
-            qls = np.zeros((R, 1), np.int32)
-            nn = np.zeros((R, CP.LANES), np.int32)
-            w1a = np.zeros((R, CP.LANES), np.float32)
-            exca = np.full((R, CP.LANES), -1, np.int32)
+            # a mesh splits the rows over its data ranks
+            R = len(entries) if mesh is None \
+                else -(-len(entries) // self.n_data) * self.n_data
+            q = dict(qpos=np.zeros((R, mb), np.int32),
+                     qspan8=np.zeros((R, mb), np.uint8),  # UNSIGNED: HPC
+                     #   spans reach 255 (sketch.c:111); int8 would wrap
+                     qls=np.zeros((R, 1), np.int32),
+                     nn=np.zeros((R, CP.LANES), np.int32),
+                     w1=np.zeros((R, CP.LANES), np.float32),
+                     exc=np.full((R, CP.LANES), -1, np.int32))
+            if mesh is None:
+                q["qposidx"] = np.full((R, mb), -1, np.int32)
+            else:
+                q.update(qhi=np.full((R, mb), 0x7FFFFFFF, np.int32),
+                         qlo=np.zeros((R, mb), np.int32),
+                         nmv=np.zeros((R, 1), np.int32))
             for r, (k, w1, excl) in enumerate(entries):
                 info = units[k][1]
                 mv = info.mv
                 nmv = len(mv)
                 _n, _ss, over_k, pos_k, occ_k = stats[k]
-                found_k = (occ_k > 0) | over_k
-                qposidx[r, :nmv] = np.where(found_k, pos_k, -1)
-                qpos[r, :nmv] = (mv[:, 1]
-                                 & np.uint64(0xFFFFFFFF)).astype(np.int64)
-                qspan8[r, :nmv] = (mv[:, 0]
-                                   & np.uint64(0xFF)).astype(np.int64)
-                qls[r, 0] = info.qlen_sum
-                nn[r, 0] = stats[k][0]
-                w1a[r, 0] = w1
+                if mesh is None:
+                    found_k = (occ_k > 0) | over_k
+                    q["qposidx"][r, :nmv] = np.where(found_k, pos_k, -1)
+                else:
+                    q["qhi"][r, :nmv], q["qlo"][r, :nmv] = split_u64(
+                        mv[:, 0] >> np.uint64(8))
+                    q["nmv"][r, 0] = nmv
+                q["qpos"][r, :nmv] = (mv[:, 1]
+                                      & np.uint64(0xFFFFFFFF)).astype(np.int64)
+                q["qspan8"][r, :nmv] = (mv[:, 0]
+                                        & np.uint64(0xFF)).astype(np.int64)
+                q["qls"][r, 0] = info.qlen_sum
+                q["nn"][r, 0] = stats[k][0]
+                q["w1"][r, 0] = w1
                 for j, (dd, val) in enumerate(excl):
-                    exca[r, 2 * j] = dd
-                    exca[r, 2 * j + 1] = val
-            to_dev = lambda a: torch.from_numpy(a).to(dev)
+                    q["exc"][r, 2 * j] = dd
+                    q["exc"][r, 2 * j + 1] = val
             with timers.time("kernel"):
-                out = flow_step(
-                    self.dx, to_dev(qposidx), to_dev(qpos), to_dev(qspan8),
-                    opt.mid_occ, to_dev(qls), to_dev(nn), to_dev(w1a),
-                    to_dev(exca), cap=cb, max_dist_x=gr, max_dist_y=gq,
-                    bw=opt.bw, max_skip=opt.max_chain_skip,
-                    use_exc=CP.infer_use_exc(exca))
+                out = self._launch(q, cap=cb, gq=gq, gr=gr,
+                                   use_exc=CP.infer_use_exc(q["exc"]))
             staged.append((entries, out))
 
         from ..native import chain_bottom_native

@@ -31,6 +31,10 @@ the JAX package's; cli.py maps them onto these arguments):
   which the JAX runtime takes by default once its link probe lets the
   flow on);
 - "host": every batch goes to a HostRuntime over the same `-t` pool.
+With `mesh_shape=(D, I)` (:136-147, :1013-1025) the fused flow runs on a
+parallel/mesh.Mesh of D x I ranks, the index key-range-sharded over I
+(models/device_flow.DeviceFlow(mesh=...)); the routing is "device", as
+--mesh pins it in JAX, and the staged path stays on this process's device.
 Left out, with the JAX lines they take: calibration and the link probe
 (:884-1002), the ripeness gate and deferred init (:289-323, :363-453), the
 share controller and persisted state (:468-501, :769-843), the ext lane
@@ -92,9 +96,29 @@ class TorchRuntime:
     def __init__(self, mi, opt, device="cuda", n_threads: int = 1,
                  routing: str = "device", flow_share: float | None = None,
                  native_chain_max: int = 0, native_ext_max: int = 0,
-                 device_seeds: bool = False):
+                 device_seeds: bool = False,
+                 mesh_shape: tuple[int, int] | None = None,
+                 mesh_devices: list | None = None):
         if routing not in ROUTINGS:
             raise ValueError(f"routing must be one of {ROUTINGS}: {routing!r}")
+        self.mesh_shape = mesh_shape
+        self._mesh = None
+        if mesh_shape is not None:
+            from ..parallel.mesh import mesh_devices as default_devices
+            nd, ni = mesh_shape
+            if nd < 1 or ni < 1 or CAP_BUCKETS[0] % ni != 0:
+                # every capacity bucket must split evenly over the index
+                # axis (they are powers of two)
+                raise ValueError(
+                    f"--mesh {nd}x{ni}: the index axis must divide the "
+                    f"{CAP_BUCKETS[0]}-slot capacity buckets; use a power "
+                    "of two")
+            if routing != "device":
+                raise ValueError("a mesh runs the device routing, not "
+                                 f"{routing!r}")
+            if mesh_devices is None:
+                mesh_devices = default_devices(nd * ni, device)
+        self._mesh_devices = mesh_devices
         if routing == "share" and not (flow_share is not None
                                        and 0.0 < flow_share < 1.0):
             raise ValueError("routing 'share' needs 0 < flow_share < 1")
@@ -136,23 +160,37 @@ class TorchRuntime:
                                             native_max=self.native_ext_max)
 
     def close(self) -> None:
-        """Stop the host lane's worker threads."""
+        """Stop the host lane's worker threads and tear the mesh down; the
+        bytes its ranks sent each other in steps are counted as mesh_bytes
+        (of them the all_gather's as mesh_allgather_bytes) and the index
+        shards sent at set-up as mesh_table_bytes."""
         for ex in (self._pool, self._lane_ex):
             if ex is not None:
                 ex.shutdown(wait=True)
         self._pool = self._lane_ex = None
         if self._host is not None:
             self._host._pool = None
+        if self._mesh is not None:
+            tot = self._mesh.close()
+            self._mesh = None
+            if tot is not None:
+                from ..parallel.mesh import STEP_KINDS
+                self.timers.count("mesh_bytes",
+                                  sum(tot[k] for k in STEP_KINDS))
+                self.timers.count("mesh_allgather_bytes", tot["all_gather"])
+                self.timers.count("mesh_table_bytes", tot["tables"])
 
     def describe(self) -> str:
         """The routing and its settings, for the [timers] line."""
         share = f" flow_share={self.flow_share}" \
             if self.routing == "share" else ""
+        mesh = "" if self.mesh_shape is None else \
+            " mesh={}x{}".format(*self.mesh_shape)
         return (f"routing={self.routing}{share} "
                 f"native_chain_max={self.native_chain_max} "
                 f"native_ext_max={self.native_ext_max} "
                 f"device_seeds={int(self.device_seeds)} "
-                f"threads={self.n_threads}")
+                f"threads={self.n_threads}{mesh}")
 
     def _get_flow(self):
         """The fused flow, built (and the CSR tables uploaded) on first
@@ -162,8 +200,13 @@ class TorchRuntime:
         if self._flow is None:
             with self._flow_lock:
                 if self._flow is None:
+                    if self.mesh_shape is not None:
+                        from ..parallel.mesh import Mesh
+                        self._mesh = Mesh(*self.mesh_shape,
+                                          devices=self._mesh_devices)
                     self._flow = DeviceFlow(self.mi, self.opt,
-                                            device=self.device)
+                                            device=self.device,
+                                            mesh=self._mesh)
         return self._flow
 
     def _host_rt(self):

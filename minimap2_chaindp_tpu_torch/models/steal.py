@@ -26,9 +26,12 @@ What differs from the JAX module, and why:
   thread, so its `time.thread_time()` is its whole host CPU, any spin in
   the CUDA synchronisation included (steal_cpu_dispatch_ms is gone); the
   owner's niceness (`set_owner_nice`) goes with it;
-- DeviceFlow.run returns only the chains, so the lane's first chunk of a
-  runtime, which pays the kernel library's load and the allocator's
-  warm-up, is its cold one and feeds no estimate;
+- DeviceFlow.run returns only the chains and no compiled shapes exist,
+  so "cold" is decided per chunk at its pull: a chunk pulled before any
+  chunk of the runtime had returned (it may pay the kernel library's
+  load and the allocator's warm-up, and map_stream's two batches pull
+  their first chunks together) feeds no estimate (the JAX lane asks
+  DeviceFlow.run per call, steal.py:341, 363);
 - no exception is caught on the card's path: a failed flow build or chunk
   stops the host lane at its next chunk and is re-raised by
   run_steal_batch after the join, with no hand-back of the chunk.
@@ -75,7 +78,7 @@ class StealState:
         self.chunk_wall_ema = CHUNK_EST_S
         self.dev_ch = DEV_CH            # adaptive chunk size
         self.paused_at = None           # monotonic time the guard paused
-        self.warm = False               # the lane has mapped a chunk
+        self.returned = False           # a device chunk has returned
 
 
 def _ema(prev, x):
@@ -260,6 +263,7 @@ def _dev_loop_body(rt, st, frags, rg_id, q_any, lock, results, stop,
             if len(q_any) < ch + reserve:
                 return
             idxs = [q_any.pop() for _ in range(ch)]
+        cold = not st.returned   # pulled before any chunk had returned
         if probing:
             st.paused_at = time.monotonic()   # re-arm on an actual pull
         t0w = time.monotonic()
@@ -267,6 +271,7 @@ def _dev_loop_body(rt, st, frags, rg_id, q_any, lock, results, stop,
         out = _dev_map_chunk(rt, frags, idxs, rg_id)
         cpu = time.thread_time() - t0c
         wall = time.monotonic() - t0w
+        st.returned = True
         with lock:
             results.update(out)
         rt.timers.count("steal_device_reads", len(out))
@@ -275,9 +280,9 @@ def _dev_loop_body(rt, st, frags, rg_id, q_any, lock, results, stop,
         # a lane that is not unprofitable jumps to the DEV_CH_MAX rung
         if not _unprofitable(st) and st.dev_ch < DEV_CH_MAX:
             st.dev_ch = DEV_CH_MAX
-        if not st.warm:
-            st.warm = True
-            continue             # the cold chunk is not lane cost
+        if cold:
+            rt.timers.count("steal_cold_chunks")
+            continue             # a cold chunk is not lane cost
         st.dev_cpu_per_read = _ema(st.dev_cpu_per_read, cpu / len(idxs))
         st.chunk_wall_ema = 0.7 * st.chunk_wall_ema + 0.3 * wall
         if st.paused_at is not None and not _unprofitable(st):
@@ -294,7 +299,11 @@ def run_steal_batch(rt, frags, rg_id: str = "") -> list[list[str]]:
     from .runtime import DEV_QLEN_MAX
     st = rt._steal_state
     if st is None:
-        st = rt._steal_state = StealState()
+        # map_stream's two batch threads may both arrive here first
+        with rt._flow_lock:
+            if rt._steal_state is None:
+                rt._steal_state = StealState()
+        st = rt._steal_state
     q_any: deque = deque()       # either lane may take these
     q_host: deque = deque()      # host-only: PE, oversized, multi-seg
     for i, fr in enumerate(frags):

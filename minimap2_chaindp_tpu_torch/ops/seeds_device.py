@@ -4,7 +4,8 @@ staged units.
 
 Port of minimap2_chaindp_tpu/ops/seeds_device.py (`split_u64` :33,
 `DeviceIndex` :72-93, `device_index_cached` :57-69, `_collect_dev` :97-192
-without the index-sharded psum, `_collect_dev_pos` :194-253,
+with the index-sharded combine over a mesh group in place of each psum,
+`_collect_dev_pos` :194-253, `shard_index_tables` :256-302,
 `DeviceSeedCollector` :305-378, `_rep_len` :380-395). The collects are
 stock torch ops (gathers, cumsum, a lexicographic binary search, a batched
 searchsorted and a stable sort): the JAX package left this code to XLA and
@@ -137,13 +138,11 @@ def _collect_dev_pos(starts, vhi, vlo, qposidx, qpos, qspan, qseg, qtandem,
                    qpos, qspan, qseg, qtandem, max_occ, qlen_sum, cap)
 
 
-def _collect_dev(khi, klo, starts, vhi, vlo, qhi, qlo, qvalid, qpos, qspan,
-                 qseg, qtandem, max_occ, qlen_sum, *, cap):
-    """The key path: each query key is found by a lexicographic binary
-    search (searchsorted-left) over the biased split keys khi/klo (n_keys,)
-    int32, with the JAX version's fixed step count; then the expansion of
-    _collect_dev_pos. q* inputs are (R, M) tensors (qhi/qlo split keys,
-    qvalid bool, the rest int32); returns what _collect_dev_pos returns."""
+def _key_search(khi, klo, qhi, qlo, qvalid):
+    """Each query key's position in the biased split keys khi/klo
+    (n_keys,) int32 by a lexicographic binary search (searchsorted-left)
+    with the JAX version's fixed step count, clamped as it clamps. Returns
+    (pos_c int64, found bool), both (R, M)."""
     K = khi.shape[0]
     R, M = qhi.shape
     if K == 0:
@@ -158,15 +157,32 @@ def _collect_dev(khi, klo, starts, vhi, vlo, qhi, qlo, qvalid, qpos, qspan,
         lo, hi = torch.where(less, mid + 1, lo), torch.where(less, hi, mid)
     pos_c = lo.clamp(max=K - 1)
     found = qvalid & (khi[pos_c] == qhi) & (klo[pos_c] == qlo)
+    return pos_c, found
+
+
+def _collect_dev(khi, klo, starts, vhi, vlo, qhi, qlo, qvalid, qpos, qspan,
+                 qseg, qtandem, max_occ, qlen_sum, *, cap, group=None):
+    """The key path: each query key is found by `_key_search`, then the
+    expansion of _collect_dev_pos. q* inputs are (R, M) tensors (qhi/qlo
+    split keys, qvalid bool, the rest int32); returns what
+    _collect_dev_pos returns.
+
+    With `group` (a parallel/mesh.Comm over the index axis) the tables are
+    one shard of a key-range-sharded CSR (shard_index_tables): every key's
+    occurrence list lives on exactly one shard, so the counts and each
+    slot's anchor are summed over the group from the disjoint
+    contributions (the JAX psums, seeds_device.py:144-148, 180-187)."""
+    pos_c, found = _key_search(khi, klo, qhi, qlo, qvalid)
     return _expand(starts, vhi, vlo, found, pos_c, qpos, qspan, qseg,
-                   qtandem, max_occ, qlen_sum, cap)
+                   qtandem, max_occ, qlen_sum, cap, group)
 
 
 def _expand(starts, vhi, vlo, found, pos_c, qpos, qspan, qseg, qtandem,
-            max_occ, qlen_sum, cap):
+            max_occ, qlen_sum, cap, group=None):
     """The collect after the key search: counts and over-occurrence
     masking (map.c:119-141), CSR expansion into `cap` slots, the anchor
-    encoding (map.c:216-229) and the stable x-sort."""
+    encoding (map.c:216-229) and the stable x-sort; with `group`, the
+    sharded combine of _collect_dev."""
     R, M = found.shape
     dev = found.device
     i32 = torch.int32
@@ -175,6 +191,13 @@ def _expand(starts, vhi, vlo, found, pos_c, qpos, qspan, qseg, qtandem,
     over = found & (cnt >= max_occ)
     keep = found & ~over
     occ = torch.where(keep, cnt, 0)
+    if group is not None:
+        # each query key is owned by exactly one shard: the sum gathers
+        occ = group.all_reduce(occ)
+        cnt_out = group.all_reduce(cnt)
+        over_out = group.all_reduce(over.to(i32)) > 0
+    else:
+        cnt_out, over_out = cnt, over
 
     cum = torch.cumsum(occ, dim=1)                       # int64
     total = cum[:, -1]
@@ -207,6 +230,12 @@ def _expand(starts, vhi, vlo, found, pos_c, qpos, qspan, qseg, qtandem,
     yhi = qsp | torch.where(tnd != 0, C.MM_SEED_TANDEM >> 32, 0).to(i32) \
         | (sid << (C.MM_SEED_SEG_SHIFT - 32))
     ylo = qpos_out
+    if group is not None:
+        # a slot's values are real only on the shard owning its match:
+        # zero elsewhere, then sum the disjoint contributions
+        own = torch.gather(keep, 1, midx_c) & live
+        xhi, xlo, yhi, ylo = (group.all_reduce(torch.where(own, v, 0))
+                              for v in (xhi, xlo, yhi, ylo))
 
     # stable sort by x == (xhi unsigned, xlo): bias xhi for a signed
     # compare, pack (sk_hi, sk_lo) into one int64 key; pads sort last
@@ -215,7 +244,60 @@ def _expand(starts, vhi, vlo, found, pos_c, qpos, qspan, qseg, qtandem,
     order = torch.sort(key, dim=1, stable=True).indices
     xhi, xlo, yhi, ylo = (torch.gather(v, 1, order)
                           for v in (xhi, xlo, yhi, ylo))
-    return xhi, xlo, yhi, ylo, total.to(i32), cnt.to(i32), over
+    return (xhi, xlo, yhi, ylo, total.to(i32), cnt_out.to(i32), over_out)
+
+
+def shard_index_tables(mi, n_shards: int):
+    """Split the CSR index into `n_shards` equal-padded key-range shards for
+    an index-sharded mesh axis (>chip-HBM genomes). Every key's occurrence
+    list lives entirely on one shard (the psum-combine disjointness
+    invariant); shard cuts balance cumulative VALUE volume, so the per-shard
+    padding Vp is ~V/n_shards plus at most one key's list (shard_map needs
+    equal block shapes — a single key hotter than V/n_shards sets the
+    floor). Returns stacked arrays shaped (n_shards*Kp,) keys /
+    (n_shards*(Kp+1),) starts / (n_shards*Vp,) values, ready to device_put
+    with PartitionSpec("index").
+
+    Copied verbatim from minimap2_chaindp_tpu/ops/seeds_device.py:256-302
+    (the port's Mesh.put sends shard i of each stacked table to the ranks
+    of index i; its collectives want equal shapes just as shard_map does)."""
+    K = len(mi.keys)
+    khi_g, klo_g = split_u64(mi.keys)
+    vhi_g = (mi.values >> np.uint64(32)).astype(np.int64).astype(np.int32)
+    vlo_g = (mi.values & np.uint64(0xFFFFFFFF)).astype(np.int64) \
+        .astype(np.int32)
+    # cut by cumulative VALUE volume, not key count: occurrence-skewed
+    # genomes would otherwise pad every shard's value table to the hottest
+    # shard's size (the structure exists because values exceed one HBM)
+    V = len(mi.values)
+    targets = [(s * V) // n_shards for s in range(n_shards + 1)]
+    cuts = [int(np.searchsorted(mi.starts, t, side="left"))
+            for t in targets]
+    cuts[0], cuts[-1] = 0, K
+    for s in range(1, n_shards):  # keep cuts monotone on tiny indexes
+        cuts[s] = min(max(cuts[s], cuts[s - 1]), K)
+    Kp = max(max(cuts[s + 1] - cuts[s] for s in range(n_shards)), 1)
+    khi = np.full((n_shards, Kp), 0x7FFFFFFF, np.int32)
+    klo = np.full((n_shards, Kp), 0x7FFFFFFF, np.int32)
+    Vp = max(max(int(mi.starts[cuts[s + 1]] - mi.starts[cuts[s]])
+                 for s in range(n_shards)), 1)
+    starts = np.zeros((n_shards, Kp + 1), np.int32)
+    vhi = np.zeros((n_shards, Vp), np.int32)
+    vlo = np.zeros((n_shards, Vp), np.int32)
+    for s in range(n_shards):
+        k0, k1 = cuts[s], cuts[s + 1]
+        n = k1 - k0
+        khi[s, :n] = khi_g[k0:k1]
+        klo[s, :n] = klo_g[k0:k1]
+        v0, v1 = int(mi.starts[k0]), int(mi.starts[k1])
+        # local CSR: rebased starts; sentinel keys repeat the end offset so
+        # their counts are 0 (a query colliding with the sentinel is harmless)
+        starts[s, :n + 1] = mi.starts[k0:k1 + 1] - v0
+        starts[s, n + 1:] = v1 - v0
+        vhi[s, :v1 - v0] = vhi_g[v0:v1]
+        vlo[s, :v1 - v0] = vlo_g[v0:v1]
+    return (khi.reshape(-1), klo.reshape(-1), starts.reshape(-1),
+            vhi.reshape(-1), vlo.reshape(-1), Kp, Vp, cuts)
 
 
 KEY_QUERY = ("qhi", "qlo", "qvalid", "qpos", "qspan", "qseg", "qtnd")

@@ -6,8 +6,9 @@ chip_smoke.ksw_cases() and on jobs at the variants' boundaries (bit-exact
 ez rows, step codes, fin), the shared-memory limit against the native host
 library, and TorchRuntime on cuda against the port's HostRuntime
 (byte-identical lines) under map-ont and -x splice, and under the stealing
-routing from map_stream's two batch threads. Skips without a CUDA
-device. This file imports neither JAX nor the JAX package, so on a GPU
+routing from map_stream's two batch threads; the device index build,
+entry(), a 1 x 1 nccl mesh, and meshes of two ranks on one card over gloo
+(1 x 2, 2 x 1). Skips without a CUDA device. This file imports neither JAX nor the JAX package, so on a GPU
 host without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -324,3 +325,98 @@ def test_steal_routing_on_card_matches_host(cuda, tmp_path):
         assert got == want
     c = rt.timers.counters
     assert c["fast_native"] + c.get("steal_device_reads", 0) == 2 * len(frags)
+
+
+def _small_genome(tmp_path, n_reads=48):
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx, read_frags
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    ref, reads = str(tmp_path / "g.fa"), str(tmp_path / "r.fa")
+    G.make_genome(ref, n_contigs=3, contig_len=200_000, seed=51)
+    G.simulate(ref, reads, n_reads, 2000, 0.10, seed=53)
+    io, mo = set_opt("map-ont")
+    mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+    recs = list(read_fastx(ref))
+    names = [r.name for r in recs]
+    seqs = [C.seq_to_nt4(r.seq) for r in recs]
+    mi = build_index(names, tuple(seqs), io.w, io.k, io.flag,
+                     io.bucket_bits)
+    mo.update(mi)
+    batches = list(read_frags([reads], mo.mini_batch_size, False))
+    return dict(names=names, seqs=seqs, io=io, mi=mi, mo=mo,
+                batches=batches)
+
+
+def test_device_index_build_on_card(cuda, tmp_path):
+    import numpy as np
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    g = _small_genome(tmp_path, n_reads=1)
+    io = g["io"]
+    for w, k, flag in ((io.w, io.k, io.flag), (5, 19, 1)):
+        host = build_index(g["names"], tuple(g["seqs"]), w, k, flag,
+                           device=False)
+        dev = build_index(g["names"], tuple(g["seqs"]), w, k, flag,
+                          device=True)
+        for f in ("keys", "starts", "values"):
+            assert np.array_equal(getattr(host, f), getattr(dev, f)), f
+
+
+def test_entry_on_card(cuda):
+    from minimap2_chaindp_tpu_torch.entry import CHAIN_KW, entry
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    fn, args = entry()
+    assert all(a.is_cuda for a in args)
+    before = TD.chain_scores_batch.launches
+    f = fn(*args)
+    torch.cuda.synchronize()
+    assert TD.chain_scores_batch.launches == before + 1
+    want = TD.chain_scores_batch_ref(*args, max_n=f.shape[1], **CHAIN_KW)[0]
+    assert f.is_cuda and torch.equal(f, want)
+
+
+def test_mesh_1x1_nccl_on_card(cuda, tmp_path):
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    g = _small_genome(tmp_path)
+    mi, mo, batches = g["mi"], g["mo"], g["batches"]
+    want = [ls for b in HostRuntime(mi, mo).map_stream(batches) for ls in b]
+    before = TD.chain_scores_batch.launches
+    rt = TorchRuntime(mi, mo, device="cuda", mesh_shape=(1, 1))
+    try:
+        got = [ls for b in rt.map_stream(batches) for ls in b]
+        assert rt._mesh.backend == "nccl"
+    finally:
+        rt.close()
+    assert got == want
+    assert TD.chain_scores_batch.launches > before
+    c = rt.timers.counters
+    # one rank sends nothing to another
+    assert c["device_reads"] > 0 and c["mesh_bytes"] == 0
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_mesh_gloo_two_ranks_one_card(cuda, tmp_path, shape):
+    """Two ranks on cuda:0 over gloo: every collective of the mesh on CUDA
+    tensors of both ranks (1 x 2: the index group's all_reduce and
+    all_gather; 2 x 1: the gather of the data rows; both: the header, the
+    scatters and close()'s all_reduce). The SAM equals HostRuntime's."""
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    g = _small_genome(tmp_path)
+    mi, mo, batches = g["mi"], g["mo"], g["batches"]
+    want = [ls for b in HostRuntime(mi, mo).map_stream(batches) for ls in b]
+    rt = TorchRuntime(mi, mo, device="cuda", mesh_shape=shape,
+                      mesh_devices=["cuda:0", "cuda:0"])
+    try:
+        got = [ls for b in rt.map_stream(batches) for ls in b]
+        assert rt._mesh.backend == "gloo"
+    finally:
+        rt.close()
+    assert got == want
+    c = rt.timers.counters
+    assert c["device_reads"] > 0 and c["mesh_bytes"] > 0
+    if shape == (1, 2):
+        assert c["mesh_allgather_bytes"] > 0

@@ -1,7 +1,8 @@
 """The port imports torch, never jax and nothing of the JAX package
 (minimap2_chaindp_tpu), not even a module there that does not import jax.
 Checked in a subprocess, because tests/conftest.py imports jax into this
-process, and by a scan of the sources' import lines."""
+process, in the ranks a mesh spawns, and by a scan of the sources' import
+lines."""
 import os
 import re
 import subprocess
@@ -15,16 +16,20 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.align",
     "minimap2_chaindp_tpu_torch.cli",
     "minimap2_chaindp_tpu_torch.constants",
+    "minimap2_chaindp_tpu_torch.entry",
     "minimap2_chaindp_tpu_torch.esterr",
     "minimap2_chaindp_tpu_torch.hits",
     "minimap2_chaindp_tpu_torch.index.build",
+    "minimap2_chaindp_tpu_torch.index.build_device",
     "minimap2_chaindp_tpu_torch.index.serialize",
     "minimap2_chaindp_tpu_torch.index.sketch",
     "minimap2_chaindp_tpu_torch.io.fastx",
     "minimap2_chaindp_tpu_torch.io.native_fastx",
     "minimap2_chaindp_tpu_torch.io.output",
+    "minimap2_chaindp_tpu_torch.mappy",
     "minimap2_chaindp_tpu_torch.models.batch_align",
     "minimap2_chaindp_tpu_torch.models.device_flow",
+    "minimap2_chaindp_tpu_torch.models.device_pipeline",
     "minimap2_chaindp_tpu_torch.models.host_runtime",
     "minimap2_chaindp_tpu_torch.models.pipeline",
     "minimap2_chaindp_tpu_torch.models.runtime",
@@ -43,12 +48,15 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.ops.seeds",
     "minimap2_chaindp_tpu_torch.ops.seeds_device",
     "minimap2_chaindp_tpu_torch.options",
+    "minimap2_chaindp_tpu_torch.parallel.mesh",
     "minimap2_chaindp_tpu_torch.pe",
     "minimap2_chaindp_tpu_torch.sdust",
+    "minimap2_chaindp_tpu_torch.tools.paftools",
     "minimap2_chaindp_tpu_torch.utils.chain_corpus",
     "minimap2_chaindp_tpu_torch.utils.chain_sweep",
     "minimap2_chaindp_tpu_torch.utils.genome_synth",
     "minimap2_chaindp_tpu_torch.utils.ksw_sweep",
+    "minimap2_chaindp_tpu_torch.utils.mesh_sweep",
     "minimap2_chaindp_tpu_torch.utils.mlog",
     "minimap2_chaindp_tpu_torch.utils.prefetch",
     "minimap2_chaindp_tpu_torch.utils.route_sweep",
@@ -124,3 +132,41 @@ def test_sources_import_nothing_foreign():
             hits += [f"{path}:{n}: {line.strip()}"
                      for n, line in enumerate(fh, 1) if bad.match(line)]
     assert not hits, "\n".join(hits)
+
+
+# started in every Python process of a run (PYTHONPATH): at exit each one
+# writes the foreign modules it loaded to a file of its own
+_RECORDER = """import atexit, os, sys
+def _record():
+    bad = sorted(m for m in sys.modules if m == "jax"
+                 or m == "minimap2_chaindp_tpu"
+                 or m.startswith("minimap2_chaindp_tpu."))
+    with open(os.path.join(os.environ["PORT_IMPORT_LOG"],
+                           f"{os.getpid()}.txt"), "w") as fh:
+        fh.write(repr(bad))
+atexit.register(_record)
+"""
+
+
+def test_mesh_ranks_load_nothing_foreign(tmp_path):
+    """The CLI's --mesh 1x2 on the CPU: the process and the rank it spawns
+    load neither jax nor the JAX package (each records what it loaded as
+    it exits)."""
+    site, log = tmp_path / "site", tmp_path / "log"
+    site.mkdir()
+    log.mkdir()
+    (site / "sitecustomize.py").write_text(_RECORDER)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PORT_IMPORT_LOG=str(log),
+               PYTHONPATH=os.pathsep.join(
+                   [str(site), ROOT, os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-m", "minimap2_chaindp_tpu_torch.cli", "-a",
+         "--device", "cpu", "--mesh", "1x2",
+         os.path.join(DATA, "splice_genome.fa"),
+         os.path.join(DATA, "splice_cdna.fa")],
+        cwd=ROOT, capture_output=True, text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "mesh=1x2" in out.stderr and "device_reads=" in out.stderr
+    records = {p.name: p.read_text() for p in log.iterdir()}
+    assert len(records) >= 2, records       # the CLI and its rank 1
+    assert set(records.values()) == {"[]"}, records

@@ -192,6 +192,53 @@ def test_steal_device_error_propagates(lanes, monkeypatch):
         rt.map_batch(lanes["frags"])
 
 
+def test_steal_concurrent_first_chunks_are_cold(lanes, monkeypatch):
+    """map_stream's two batch threads each start a lane, and their first
+    chunks run at the same time (held behind a barrier): both were pulled
+    before any chunk returned, so neither feeds the lane's estimate, and
+    the two threads end with one StealState between them."""
+    real_dev = TSteal._dev_map_chunk
+    barrier = threading.Barrier(2, timeout=120)
+    n_back, both_back = [], threading.Event()
+    made = []
+
+    class CountedState(TSteal.StealState):
+        def __init__(self):
+            made.append(self)
+            threading.Event().wait(0.2)   # widen the creation race
+            super().__init__()
+
+    def dev(rt, frags, idxs, rg_id):
+        barrier.wait()
+        try:
+            return real_dev(rt, frags, idxs, rg_id)
+        finally:
+            n_back.append(1)
+            if len(n_back) >= 2:
+                both_back.set()
+
+    def host(rt, frags, idxs, rg_id):
+        # the host lanes start once both first chunks have returned; the
+        # lanes, then at DEV_CH_MAX, find too little left to pull again
+        assert both_back.wait(120)
+        return real_host(rt, frags, idxs, rg_id)
+    real_host = TSteal._host_map_chunk
+    monkeypatch.setattr(TSteal, "StealState", CountedState)
+    monkeypatch.setattr(TSteal, "_dev_map_chunk", dev)
+    monkeypatch.setattr(TSteal, "_host_map_chunk", host)
+    rt = TorchRuntime(lanes["mi"], lanes["mo"], device="cpu", n_threads=3,
+                      routing="steal")
+    frags = lanes["frags"]
+    got = [ls for b in rt.map_stream([list(frags), list(frags)])
+           for ls in b]
+    assert got == lanes["want"] + lanes["want"]
+    assert len(made) == 1 and rt._steal_state is made[0]
+    st, c = rt._steal_state, rt.timers.counters
+    assert c["steal_chunks"] == 2 and c["steal_cold_chunks"] == 2
+    assert st.dev_cpu_per_read is None
+    assert st.chunk_wall_ema == TSteal.CHUNK_EST_S
+
+
 def test_steal_economics_match_jax(monkeypatch):
     """_ema, _unprofitable and the host lane's cost estimates (EMA and the
     fast-down/slow-up best) equal the JAX module's on seeded sequences."""

@@ -22,13 +22,14 @@ DATA = os.path.join(ROOT, "tests", "data")
 SAM = C.MM_F_OUT_SAM | C.MM_F_CIGAR
 
 # copied module -> lines that may differ from the original (removed +
-# added): build.py drops the accelerator pair sort, which lives in a module
-# that is not copied; host_runtime.py takes the port's host executor
+# added): build.py sends the pair sort to the port's own
+# index/build_device.py on a torch device; host_runtime.py takes the port's
+# host executor
 COPIED = {
     "constants": 0, "options": 0, "esterr": 0, "sdust": 0,
     "utils.timers": 0, "utils.mlog": 0, "utils.prefetch": 0,
     "utils.synth": 0, "native": 0, "io.fastx": 0, "io.native_fastx": 0,
-    "io.output": 0, "index.sketch": 0, "index.build": 6,
+    "io.output": 0, "index.sketch": 0, "index.build": 9,
     "index.serialize": 0, "ops.seeds": 0, "ops.chain": 0, "ops.ksw2": 0,
     "ops.ksw2_splice": 0, "ops.ksw2_backtrack": 0, "hits": 0, "pe": 0,
     "align": 0, "models.pipeline": 0, "models.host_runtime": 4,
