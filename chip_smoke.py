@@ -46,15 +46,24 @@ Phases, each printing its own lines:
      timed in turns (ABAB, then BABA) on phase 7's batches at -t 3.
      Byte-identical to HostRuntime, >= 90% of the reads chained by the
      kernel on both meshes.
+  9. the port's bench (`python -m minimap2_chaindp_tpu_torch.bench`) as a
+     subprocess: the chain kernel's headline at 8192 x 1024, the native
+     host baseline, the end-to-end rows (10 kb, 1 kb, sr pairs, the
+     stealing routing; BENCH_E2E_SCALE of their reads, BENCH_STEADY timed
+     pairs) and the flow row. Its last line must parse, stay under 2000
+     characters, name the card, hold the headline rate, and every pair of
+     runs must write the same SAM on the card's lane and the host's; then
+     the headline batch is held against the plain version here.
 In phases 5 and 6 the chain kernel (on the largest input of each of its
 modes) and the ksw2 kernels (on the largest launch) are checked and timed
 again on the inputs the path gave them.
 Each of phases 4-6, each run of phase 7 and each path of phase 8 (entry(),
 each timed run of the two meshes, the dry run) sets the launch counters to
 0 just before its run and reads them just after; the kernels line counts
-phases 4, 5, 6 and 8. A mesh's other ranks are processes of their own, but
-in a 1 x I mesh rank 0 runs every chain (the index-0 rank of a data row
-chains it, models/device_pipeline.py).
+phases 4, 5, 6, 8 and 9 (phase 9's processes start from 0 and report
+their counts in the bench's record). A mesh's other ranks are processes
+of their own, but in a 1 x I mesh rank 0 runs every chain (the index-0
+rank of a data row chains it, models/device_pipeline.py).
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 
@@ -150,6 +159,12 @@ LANE_CHAIN_MAX = 1024           # anchors
 LANE_EXT_MAX = 256              # bases of query plus target
 # phase 8: the host routing and HostRuntime in turns, ABAB then BABA
 HOST_GAP_ORDER = "ABABBABA"
+# phase 9: the port's bench at the headline's full shape (8192 x 1024), its
+# end-to-end rows cut to a quarter of their reads and 2 timed pairs each
+# (the cut keeps the smoke inside its time limit)
+BENCH_E2E_SCALE = 0.25
+BENCH_STEADY = 2
+BENCH_TIMEOUT_S = 600
 
 
 class SmokeFailure(Exception):
@@ -1565,6 +1580,65 @@ def phase_rest(e2e):
                 meshes=meshes, gap=gap)
 
 
+# ---------------------------------------------------------------- phase 9
+def phase_bench():
+    """The port's bench (minimap2_chaindp_tpu_torch/bench.py) as a
+    subprocess: its record must parse, stay under 2000 characters, name
+    the card, hold a headline rate and every pair row's SAM equal on both
+    lanes. The bench process counts its launches from 0 (each row and the
+    flow row in processes of their own) and reports them in its record;
+    they are phase 9's. Then the headline batch's f/p/flag against the
+    plain version, in this process (a comparison launch, not counted)."""
+    import torch
+    from minimap2_chaindp_tpu_torch import bench as B
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "minimap2_chaindp_tpu_torch.bench",
+         "--e2e-scale", str(BENCH_E2E_SCALE), "--steady", str(BENCH_STEADY)],
+        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, cwd=ROOT)
+    for line in out.stderr.splitlines():
+        if line.startswith("[bench]"):
+            log(f"phase 9 {line}")
+    check(out.returncode == 0, f"phase 9: the bench exited "
+          f"{out.returncode}: {out.stderr.strip()[-2000:]}")
+    last = out.stdout.strip().splitlines()[-1]
+    check(len(last) < 2000, f"phase 9: the record has {len(last)} chars")
+    rec = json.loads(last)
+    log(f"phase 9 record: {last}")
+    check(rec["device"]["platform"] == "gpu" and rec["device"]["power_limit"],
+          f"phase 9: the record's device is {rec['device']}")
+    check(rec["metric"] == "chaindp_anchors_per_s" and rec["value"]
+          and rec["baseline_host_native_1core"]
+          and rec["check_batch1"] == "bit-exact",
+          "phase 9: no headline rate, baseline or batch check")
+    pairs = f"{BENCH_STEADY + 1}/{BENCH_STEADY + 1}"
+    for row in B.E2E_ROWS:
+        check(rec[f"{row}_sam_identical"] == pairs
+              and rec[f"{row}_cuda_vs_host_paired_ratio"] is not None,
+              f"phase 9: row {row} is incomplete")
+    check(rec["flow_measured_reads_per_s"] is not None,
+          "phase 9: no flow row")
+    n = rec["launches"]
+    check(n["chain"] > 0 and n["ksw"] > 0 and n["walk"] > 0,
+          f"phase 9: the bench's paths launched {n}")
+    args, use_exc = B.headline_batch(B.N_READS, 1, torch.device("cuda"))
+    got = B.dispatch(args, use_exc)
+    want, plain_ms = _timed(lambda: TD.chain_scores_batch_ref(
+        *args, **B.CHAIN_KW, use_exc=use_exc))
+    for label, g, w in zip(("f", "p", "flag"), got, want):
+        check(torch.equal(g, w), f"phase 9: the headline batch's {label} "
+              "differs from the plain version")
+    secs = time.perf_counter() - t0
+    log(f"phase 9 bench: {rec['value'] / 1e6:.1f} M anchors/s (pipeline "
+        f"{rec['pipeline_ms']} ms host clock, {rec['pipeline_device_ms']} ms "
+        f"CUDA events), baseline {rec['baseline_host_native_1core'] / 1e6:.2f}"
+        f" M anchors/s; headline batch bit-exact against the plain version "
+        f"({plain_ms:.1f} ms); every pair row's SAM identical on both lanes "
+        f"({pairs}); launches {n}; {secs:.1f} s")
+    return dict(launches=n, secs=secs)
+
+
 def _chain_fields(tag, res):
     """compare_kernel's numbers under the names of one more input."""
     return {f"ms_{tag}": res["ms"], f"plain_ms_{tag}": res["plain_ms"],
@@ -1591,6 +1665,7 @@ def main() -> int:
         pe = phase_paired(e2e["ref"])
         phase_lanes(e2e, spl, pe)
         rest = phase_rest(e2e)
+        bench9 = phase_bench()
     except Exception:
         traceback.print_exc()
         print("[smoke] FAILED", file=sys.stderr)
@@ -1602,7 +1677,8 @@ def main() -> int:
         {"name": "chain_dp", "route": "cuda", "source": CHAIN_SOURCE,
          "replaces": CHAIN_REPLACES,
          "launches": e2e["launches"] + spl["chain"] + pe["chain"]
-         + rest["launches"],
+         + rest["launches"] + bench9["launches"]["chain"],
+         "launches_phase9": bench9["launches"]["chain"],
          "max_abs_err": max(worst, e2e["err"], spl["chain_err"],
                             pe["chain_err"], rest["meshes"]["res"]["err"]),
          "ms": e2e["ms"],
@@ -1612,6 +1688,7 @@ def main() -> int:
          "variant_ms": e2e["variant_ms"],
          "launches_by_form": {f: e2e["by_form"][f] + spl["chain_by_form"][f]
                               + pe["chain_by_form"][f] + rest["by_form"][f]
+                              + bench9["launches"][f]
                               for f in e2e["by_form"]},
          **_chain_fields("phase5", spl["chain_res"]["cdna"]),
          **_chain_fields("phase6", pe["chain_res"]["many_segs"]),
@@ -1619,7 +1696,9 @@ def main() -> int:
          **_chain_fields("bench", bench),
          "anchors_per_s_bench": bench["anchors"] / bench["ms"] * 1e3},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,
-         "replaces": KSW_REPLACES, "launches": spl["ksw"] + pe["ksw"],
+         "replaces": KSW_REPLACES,
+         "launches": spl["ksw"] + pe["ksw"] + bench9["launches"]["ksw"],
+         "launches_phase9": bench9["launches"]["ksw"],
          "max_abs_err": err, "ms": spl["ms"], "plain_ms": spl["plain_ms"],
          "bound_ms": spl["bound_ms"], "bound_by": spl["bound_by"],
          "library_ms": None, "step_ns": spl["step_ns"],
@@ -1631,7 +1710,9 @@ def main() -> int:
          "step_ns_phase6": pe["step_ns"],
          "variant_ms_phase6": pe["variant_ms"]},
         {"name": "ksw2_walk", "route": "cuda", "source": KSW_SOURCE,
-         "replaces": WALK_REPLACES, "launches": spl["walk"] + pe["walk"],
+         "replaces": WALK_REPLACES,
+         "launches": spl["walk"] + pe["walk"] + bench9["launches"]["walk"],
+         "launches_phase9": bench9["launches"]["walk"],
          "max_abs_err": err, "ms": spl["walk_ms"],
          "plain_ms": spl["walk_plain_ms"],
          "bound_ms": spl["walk_bound_ms"],

@@ -53,6 +53,9 @@ from .options import IndexOptions, MapOptions, check_opt, set_opt
 
 DEVICES = ("cuda", "cpu", "host")
 VERSION = "0.1.0 (minimap2 2.10-r761 compatible)"
+# the finished run's runtime counters, for tools that run the CLI in
+# process (tools/e2e_bench.py); the counterpart of the JAX cli.py:19, 652-653
+LAST_RUN_COUNTERS: dict = {}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -609,6 +612,8 @@ def _main(argv=None) -> int:
                   f"{runtime.timers.summary()}", file=sys.stderr)
         else:
             runtime.timers.report()
+        global LAST_RUN_COUNTERS
+        LAST_RUN_COUNTERS = dict(runtime.timers.counters)
     if dump_fp is not None:
         dump_fp.close()
     mlog.banner("2.10-r761", argv_disp)

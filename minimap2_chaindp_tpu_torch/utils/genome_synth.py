@@ -2,10 +2,14 @@
 
 `make_genome` and `simulate` are copied from tools/genome_scale.py (:34-110)
 with the port's own FASTA reader: the same seeds give the same bytes, so
-files cached from either are interchangeable.
+files cached from either are interchangeable. `simulate_pairs` is its
+paired-end generator (:295-318) as a function; `cached_genome` keeps one
+genome per (contigs, length, seed) under the temp directory.
 """
 from __future__ import annotations
 
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -90,3 +94,54 @@ def simulate(ref_path, out_path, n, read_len, err, seed, hpc_style=False):
             if strand == "-":
                 s = s[::-1].translate(comp)
             f.write(f">r{i}!{name}!{st}!{st + read_len}!{strand}\n{s}\n")
+
+
+def simulate_pairs(ref_path, out1, out2, n, seed=21, read_len=150,
+                   insert=(300, 700), err=0.005):
+    """n FR pairs of read_len-bp FASTQ reads from inserts drawn in
+    [insert) with uniform substitutions at rate err; the second mate is the
+    reverse complement of the insert's end. Returns the truth, one
+    (contig, start1, start2, insert) per pair."""
+    from ..io.fastx import read_fastx
+    rng = np.random.default_rng(seed)
+    contigs = [(r.name, r.seq) for r in read_fastx(ref_path)]
+    comp = str.maketrans("ACGT", "TGCA")
+    qual = "I" * read_len
+    truth = []
+    with open(out1, "w") as f1, open(out2, "w") as f2:
+        for i in range(n):
+            cname, seq = contigs[int(rng.integers(0, len(contigs)))]
+            ins = int(rng.integers(*insert))
+            st = int(rng.integers(0, len(seq) - ins))
+            r1 = list(seq[st:st + read_len])
+            r2 = list(seq[st + ins - read_len:st + ins])
+            for r in (r1, r2):
+                for j in range(len(r)):
+                    if rng.random() < err:
+                        r[j] = "ACGT"[int(rng.integers(0, 4))]
+            r2 = "".join(r2)[::-1].translate(comp)
+            f1.write(f"@pp{i}\n{''.join(r1)}\n+\n{qual}\n")
+            f2.write(f"@pp{i}\n{r2}\n+\n{qual}\n")
+            truth.append((cname, st, st + ins - read_len, ins))
+    return truth
+
+
+def cache_dir() -> str:
+    """The directory that caches generated genomes, reads and indexes
+    between runs: mm2tpu_torch_cache under the temp directory."""
+    d = os.path.join(tempfile.gettempdir(), "mm2tpu_torch_cache")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def cached_genome(n_contigs=25, contig_len=2_000_000, seed=42) -> str:
+    """The path of make_genome(n_contigs, contig_len, seed), written once
+    into cache_dir() (through a temp file, so a reader never sees a part)."""
+    path = os.path.join(cache_dir(),
+                        f"genome_{n_contigs}x{contig_len}_s{seed}.fa")
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        make_genome(tmp, n_contigs=n_contigs, contig_len=contig_len,
+                    seed=seed)
+        os.replace(tmp, path)
+    return path

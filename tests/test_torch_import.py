@@ -14,6 +14,7 @@ DATA = os.path.join(ROOT, "tests", "data")
 PORT_MODULES = (
     "minimap2_chaindp_tpu_torch",
     "minimap2_chaindp_tpu_torch.align",
+    "minimap2_chaindp_tpu_torch.bench",
     "minimap2_chaindp_tpu_torch.cli",
     "minimap2_chaindp_tpu_torch.constants",
     "minimap2_chaindp_tpu_torch.entry",
@@ -51,6 +52,9 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.parallel.mesh",
     "minimap2_chaindp_tpu_torch.pe",
     "minimap2_chaindp_tpu_torch.sdust",
+    "minimap2_chaindp_tpu_torch.tools.e2e_bench",
+    "minimap2_chaindp_tpu_torch.tools.flow_projection",
+    "minimap2_chaindp_tpu_torch.tools.genome_scale",
     "minimap2_chaindp_tpu_torch.tools.paftools",
     "minimap2_chaindp_tpu_torch.utils.chain_corpus",
     "minimap2_chaindp_tpu_torch.utils.chain_sweep",
