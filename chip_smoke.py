@@ -53,7 +53,11 @@ Phases, each printing its own lines:
      pairs) and the flow row. Its last line must parse, stay under 2000
      characters, name the card, hold the headline rate, and every pair of
      runs must write the same SAM on the card's lane and the host's; then
-     the headline batch is held against the plain version here.
+     the headline batch is held against the plain version here, and so is
+     the largest input of each kernel wrapper that each row and the flow
+     row kept (`--keep-inputs`, utils/kernel_inputs.py): the chain kernel
+     by mode in every row, the ksw2 forward and walk kernels on the sr
+     row's largest extension launch (and any other row's).
 In phases 5 and 6 the chain kernel (on the largest input of each of its
 modes) and the ksw2 kernels (on the largest launch) are checked and timed
 again on the inputs the path gave them.
@@ -517,18 +521,26 @@ def ksw_cases():
 def ksw_inputs(jobs, scoring, splice, device):
     """pack_jobs' arrays as tensors on `device` plus the forward wrapper's
     keywords (the launch groups of ksw2_pack.launch_plan among them)."""
-    import torch
     from minimap2_chaindp_tpu_torch.ops import ksw2 as K
     from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
     q, e, q2, e2n, a, b = scoring
-    pk = KPK.pack_jobs(jobs, splice=splice, noncan=e2n if splice else 0)
-    qq, ee, qq2, ee2, lt, ld = KPK.gap_params(q, e, q2, 0 if splice else e2n,
-                                              splice)
+    gaps = KPK.gap_params(q, e, q2, 0 if splice else e2n, splice)
     mat = K.gen_simple_mat(5, a, b)
+    return packed_ksw_inputs(
+        jobs, KE.forward_scoring(mat, gaps, splice=splice), splice,
+        e2n if splice else 0, device)
+
+
+def packed_ksw_inputs(jobs, fwd_scoring, splice, noncan, device):
+    """ksw_inputs for jobs whose forward wrapper's `scoring` is known (as
+    utils/kernel_inputs.py keeps it)."""
+    import torch
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
     from minimap2_chaindp_tpu_torch.ops.ksw2_ext import TENSOR_KEYS
+    pk = KPK.pack_jobs(jobs, splice=splice, noncan=noncan)
     ts = {k: torch.from_numpy(pk[k]).to(device) for k in TENSOR_KEYS}
-    kw = dict(groups=pk["groups"], scoring=(qq, ee, qq2, ee2, int(mat[0]), int(mat[1]),
-                       -ee if splice else -ee2, lt, ld),
+    kw = dict(groups=pk["groups"], scoring=tuple(fwd_scoring),
               splice=splice, p_bytes=pk["p_bytes"], t_total=pk["t_total"],
               band_max=pk["band_max"], rows_max=pk["rows_max"])
     return pk, ts, kw
@@ -1587,15 +1599,22 @@ def phase_bench():
     the card, hold a headline rate and every pair row's SAM equal on both
     lanes. The bench process counts its launches from 0 (each row and the
     flow row in processes of their own) and reports them in its record;
-    they are phase 9's. Then the headline batch's f/p/flag against the
-    plain version, in this process (a comparison launch, not counted)."""
+    they are phase 9's. Each row and the flow row keep the largest input
+    of each kernel wrapper (--keep-inputs): here every one of them, and
+    the headline batch, is held against the plain version (comparison
+    launches, not counted)."""
+    import shutil
     import torch
     from minimap2_chaindp_tpu_torch import bench as B
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    from minimap2_chaindp_tpu_torch.utils import kernel_inputs as KI
     t0 = time.perf_counter()
+    keep = os.path.join(SMOKE_DIR, "bench_inputs")
+    shutil.rmtree(keep, ignore_errors=True)
     out = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu_torch.bench",
-         "--e2e-scale", str(BENCH_E2E_SCALE), "--steady", str(BENCH_STEADY)],
+         "--e2e-scale", str(BENCH_E2E_SCALE), "--steady", str(BENCH_STEADY),
+         "--keep-inputs", keep],
         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, cwd=ROOT)
     for line in out.stderr.splitlines():
         if line.startswith("[bench]"):
@@ -1622,6 +1641,7 @@ def phase_bench():
     n = rec["launches"]
     check(n["chain"] > 0 and n["ksw"] > 0 and n["walk"] > 0,
           f"phase 9: the bench's paths launched {n}")
+    secs_bench = time.perf_counter() - t0
     args, use_exc = B.headline_batch(B.N_READS, 1, torch.device("cuda"))
     got = B.dispatch(args, use_exc)
     want, plain_ms = _timed(lambda: TD.chain_scores_batch_ref(
@@ -1629,14 +1649,39 @@ def phase_bench():
     for label, g, w in zip(("f", "p", "flag"), got, want):
         check(torch.equal(g, w), f"phase 9: the headline batch's {label} "
               "differs from the plain version")
+    del args, got, want
+    # every row's largest kernel inputs against the plain versions
+    chain, ksw = {}, {}
+    for row in [*B.E2E_ROWS, "flow"]:
+        kept = KI.load(os.path.join(keep, row), "cuda")
+        check(any(k.startswith("chain_") for k in kept),
+              f"phase 9: row {row} kept no chain input")
+        for name, val in kept.items():
+            if name == "ksw":
+                pk, ts, kw = packed_ksw_inputs(
+                    val["jobs"], val["scoring"], val["splice"],
+                    val["noncan"], "cuda")
+                ksw[row] = compare_ksw(
+                    f"{row} input ({len(val['jobs'])} jobs)", pk, ts, kw,
+                    reps=3, phase=9)
+                continue
+            ts, kw = val
+            mode = name[len("chain_"):]
+            chain[f"{row}_{mode}"] = compare_kernel(
+                f"{row} {mode} input R={ts[1].shape[0]} "
+                f"max_n={kw['max_n']}", ts, kw, reps=3, phase=9)
+    check("e2e_sr150" in ksw, "phase 9: the sr row kept no extension "
+          "launch")
     secs = time.perf_counter() - t0
     log(f"phase 9 bench: {rec['value'] / 1e6:.1f} M anchors/s (pipeline "
         f"{rec['pipeline_ms']} ms host clock, {rec['pipeline_device_ms']} ms "
         f"CUDA events), baseline {rec['baseline_host_native_1core'] / 1e6:.2f}"
         f" M anchors/s; headline batch bit-exact against the plain version "
         f"({plain_ms:.1f} ms); every pair row's SAM identical on both lanes "
-        f"({pairs}); launches {n}; {secs:.1f} s")
-    return dict(launches=n, secs=secs)
+        f"({pairs}); the rows' largest inputs bit-exact: chain "
+        f"{sorted(chain)}, ksw2 and walk {sorted(ksw)}; launches {n}; "
+        f"bench {secs_bench:.1f} s, phase {secs:.1f} s")
+    return dict(launches=n, secs=secs, chain=chain, ksw=ksw)
 
 
 def _chain_fields(tag, res):
@@ -1680,7 +1725,8 @@ def main() -> int:
          + rest["launches"] + bench9["launches"]["chain"],
          "launches_phase9": bench9["launches"]["chain"],
          "max_abs_err": max(worst, e2e["err"], spl["chain_err"],
-                            pe["chain_err"], rest["meshes"]["res"]["err"]),
+                            pe["chain_err"], rest["meshes"]["res"]["err"],
+                            *(r["err"] for r in bench9["chain"].values())),
          "ms": e2e["ms"],
          "plain_ms": e2e["plain_ms"], "bound_ms": e2e["bound_ms"],
          "bound_by": e2e["bound_by"], "library_ms": None,
@@ -1694,12 +1740,18 @@ def main() -> int:
          **_chain_fields("phase6", pe["chain_res"]["many_segs"]),
          **_chain_fields("phase8_mesh", rest["meshes"]["res"]),
          **_chain_fields("bench", bench),
-         "anchors_per_s_bench": bench["anchors"] / bench["ms"] * 1e3},
+         "anchors_per_s_bench": bench["anchors"] / bench["ms"] * 1e3,
+         "checks_phase9": {
+             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "form", "anchors")}
+             for k, r in bench9["chain"].items()}},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,
          "replaces": KSW_REPLACES,
          "launches": spl["ksw"] + pe["ksw"] + bench9["launches"]["ksw"],
          "launches_phase9": bench9["launches"]["ksw"],
-         "max_abs_err": err, "ms": spl["ms"], "plain_ms": spl["plain_ms"],
+         "max_abs_err": max(err, *(r["err"]
+                                   for r in bench9["ksw"].values())),
+         "ms": spl["ms"], "plain_ms": spl["plain_ms"],
          "bound_ms": spl["bound_ms"], "bound_by": spl["bound_by"],
          "library_ms": None, "step_ns": spl["step_ns"],
          "variant_ms": spl["variant_ms"],
@@ -1708,18 +1760,29 @@ def main() -> int:
                                  for v in spl["by_variant"]},
          "ms_phase6": pe["ms"], "bound_ms_phase6": pe["bound_ms"],
          "step_ns_phase6": pe["step_ns"],
-         "variant_ms_phase6": pe["variant_ms"]},
+         "variant_ms_phase6": pe["variant_ms"],
+         "checks_phase9": {
+             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by")}
+             for k, r in bench9["ksw"].items()}},
         {"name": "ksw2_walk", "route": "cuda", "source": KSW_SOURCE,
          "replaces": WALK_REPLACES,
          "launches": spl["walk"] + pe["walk"] + bench9["launches"]["walk"],
          "launches_phase9": bench9["launches"]["walk"],
-         "max_abs_err": err, "ms": spl["walk_ms"],
+         "max_abs_err": max(err, *(r["err"]
+                                   for r in bench9["ksw"].values())),
+         "ms": spl["walk_ms"],
          "plain_ms": spl["walk_plain_ms"],
          "bound_ms": spl["walk_bound_ms"],
          "bound_by": spl["walk_bound_by"], "library_ms": None,
          "step_ns": spl["walk_step_ns"], "ms_phase6": pe["walk_ms"],
          "bound_ms_phase6": pe["walk_bound_ms"],
-         "step_ns_phase6": pe["walk_step_ns"]}]}))
+         "step_ns_phase6": pe["walk_step_ns"],
+         "checks_phase9": {k: {"err": r["err"], "ms": r["walk_ms"],
+                               "plain_ms": r["walk_plain_ms"],
+                               "bound_ms": r["walk_bound_ms"],
+                               "bound_by": r["walk_bound_by"]}
+                           for k, r in bench9["ksw"].items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

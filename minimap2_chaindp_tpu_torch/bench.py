@@ -5,7 +5,7 @@ turns) and the flow row.
 
     python -m minimap2_chaindp_tpu_torch.bench [--device cuda|cpu]
         [--reads N] [--no-e2e] [--no-projection] [--e2e-scale F]
-        [--steady N]
+        [--steady N] [--keep-inputs DIR]
 
 Port of the device half of bench.py at the repo root:
   * the headline (`main_device`, :550-634): csrc/chain_dp.cu through
@@ -41,6 +41,9 @@ Port of the device half of bench.py at the repo root:
     10 kb, 48 reads, 3 iterations.
 `launches` counts the kernel launches of every part: the headline in this
 process from 0, each row's and the flow's in their own processes.
+`--keep-inputs DIR` has each row and the flow row write the largest input
+of each kernel wrapper under DIR/<row> (utils/kernel_inputs.py), where a
+check against the plain versions can read it (chip_smoke.py phase 9).
 
 The record is one JSON line, the last on stdout, under 2000 characters,
 with the card's name, count and power limit (nvidia-smi). A row that fails
@@ -210,14 +213,19 @@ def _after(text, key):
     return float(line.split(key)[1].split()[0])
 
 
-def e2e_row(name, lane, scale, steady, on_card, launches) -> dict:
+def keep_args(keep, name) -> list:
+    return ["--keep-inputs", os.path.join(keep, name)] if keep else []
+
+
+def e2e_row(name, lane, scale, steady, on_card, launches, keep) -> dict:
     """One row through tools/e2e_bench.py --device pair (module docstring);
     adds the row's launches to `launches`."""
     reads, length, more, n_steady, env, timeout = E2E_ROWS[name]
     reads = max(1, round(reads * scale))
     out, err = run_tool("tools.e2e_bench", [
         "--reads", reads, "--len", length, *more, "--device", "pair",
-        "--pair-lane", lane, "--steady", steady or n_steady], timeout, env)
+        "--pair-lane", lane, "--steady", steady or n_steady,
+        *keep_args(keep, name)], timeout, env)
     line = next(ln for ln in out.splitlines() if ln.startswith("launches:"))
     for tok in line.split()[1:]:
         k, v = tok.split("=")
@@ -243,10 +251,11 @@ def e2e_row(name, lane, scale, steady, on_card, launches) -> dict:
     return fields
 
 
-def flow_row(lane, on_card, launches) -> dict:
+def flow_row(lane, on_card, launches, keep) -> dict:
     """The flow row through tools/flow_projection.py (module docstring)."""
     out, _err = run_tool("tools.flow_projection",
-                        [*FLOW_ARGS, "--json", "--device", lane],
+                        [*FLOW_ARGS, "--json", "--device", lane,
+                         *keep_args(keep, "flow")],
                         FLOW_TIMEOUT_S, {"MM2TPU_PROF": "1"})
     rec = json.loads(out.strip().splitlines()[-1])
     for k, v in rec["launches"].items():
@@ -297,6 +306,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steady", type=int, default=0,
                     help="timed pairs of every end-to-end row (default: "
                          "the row's own)")
+    ap.add_argument("--keep-inputs", default=None, metavar="DIR",
+                    help="each row's largest kernel inputs under DIR/<row>")
     ns = ap.parse_args(argv)
     import torch
     on_card = ns.device == "cuda"
@@ -333,11 +344,12 @@ def main(argv=None) -> int:
         rec["genome"] = ("utils/genome_synth {n_contigs} x {contig_len} bp, "
                          "seed {seed}").format(**GENOME)
         parts = [(name, functools.partial(e2e_row, name, lane, ns.e2e_scale,
-                                          ns.steady, on_card, launches))
+                                          ns.steady, on_card, launches,
+                                          ns.keep_inputs))
                  for name in E2E_ROWS]
     if not ns.no_projection:
         parts.append(("flow", functools.partial(flow_row, lane, on_card,
-                                                launches)))
+                                                launches, ns.keep_inputs)))
     failed = False
     for name, run in parts:
         t0 = time.perf_counter()

@@ -182,30 +182,43 @@ class DeviceFlow:
         """One bucket's device step. `q` holds the bucket's host arrays:
         qposidx (single device) or qhi/qlo/nmv (mesh), and qpos, qspan8,
         qls, nn, w1, exc. Returns (xhi, xlo, yhi, ylo, f, p, flag)."""
-        opt = self.opt
-        kw = dict(cap=cap, max_dist_x=gr, max_dist_y=gq, bw=opt.bw,
-                  max_skip=opt.max_chain_skip, use_exc=use_exc)
         if self.mesh is not None:
             from .device_pipeline import sharded_flow_step
+            opt = self.opt
             return tuple(self.mesh.step(
                 sharded_flow_step,
                 {k: q[k] for k in ("qhi", "qlo", "qpos", "qspan8", "nmv",
                                    "qls", "nn", "w1", "exc")},
-                table="flow", max_occ=opt.mid_occ, **kw))
-        to_dev = lambda a: torch.from_numpy(a).to(self.device)
-        return flow_step(self.dx, to_dev(q["qposidx"]), to_dev(q["qpos"]),
-                         to_dev(q["qspan8"]), opt.mid_occ, to_dev(q["qls"]),
-                         to_dev(q["nn"]), to_dev(q["w1"]), to_dev(q["exc"]),
-                         **kw)
+                table="flow", max_occ=opt.mid_occ, cap=cap,
+                max_dist_x=gr, max_dist_y=gq, bw=opt.bw,
+                max_skip=opt.max_chain_skip, use_exc=use_exc))
+        return self.step(self.place(q), cap=cap, gq=gq, gr=gr,
+                         use_exc=use_exc)
 
-    def run(self, units, timers: Timers | None = None) -> dict[int, Chains]:
-        """Run eligible units through the fused device step.
+    def place(self, q: dict) -> dict:
+        """A single-device bucket's host arrays as tensors on the device."""
+        return {k: torch.from_numpy(q[k]).to(self.device)
+                for k in ("qposidx", "qpos", "qspan8", "qls", "nn", "w1",
+                          "exc")}
 
-        `units` is a list of (segs, UnitInfo); eligible units get info.sh
-        filled (anchors from the device, host-computed rep_len / mini_pos)
-        and an entry in the returned {unit_index: Chains} dict. Ineligible
-        or fallback units are left for the staged path."""
-        timers = timers if timers is not None else Timers()
+    def step(self, d: dict, *, cap, gq, gr, use_exc):
+        """flow_step on a bucket that place() put on the device."""
+        opt = self.opt
+        return flow_step(self.dx, d["qposidx"], d["qpos"], d["qspan8"],
+                         opt.mid_occ, d["qls"], d["nn"], d["w1"], d["exc"],
+                         cap=cap, max_dist_x=gr, max_dist_y=gq, bw=opt.bw,
+                         max_skip=opt.max_chain_skip, use_exc=use_exc)
+
+    def buckets(self, units):
+        """The fused step's work for `units` (a list of (segs, UnitInfo)):
+        each read's eligibility and the fill of its bucket. Returns
+        (results, stats, buckets): `results` the Chains of the reads with
+        no hit (their info.sh is filled here; no device work), `stats` the
+        host seed stats by unit index, and `buckets`, sorted by
+        (mb, cb, gq, gr), a list of (entries, q, kw): the rows' (unit
+        index, w1, exceptions), the host arrays and _launch's keywords.
+        Ineligible units appear in neither and are left for the staged
+        path."""
         opt, mi = self.opt, self.mi
         results: dict[int, Chains] = {}
         stats: dict[int, tuple] = {}
@@ -250,7 +263,7 @@ class DeviceFlow:
             key = (mb, cb, info.gap_qry, info.gap_ref)
             by_bucket.setdefault(key, []).append((k, w1, excl))
 
-        staged = []
+        out = []
         mesh = self.mesh
         for (mb, cb, gq, gr), entries in sorted(by_bucket.items()):
             # a mesh splits the rows over its data ranks
@@ -291,9 +304,24 @@ class DeviceFlow:
                 for j, (dd, val) in enumerate(excl):
                     q["exc"][r, 2 * j] = dd
                     q["exc"][r, 2 * j + 1] = val
+            out.append((entries, q, dict(cap=cb, gq=gq, gr=gr,
+                                         use_exc=CP.infer_use_exc(q["exc"]))))
+        return results, stats, out
+
+    def run(self, units, timers: Timers | None = None) -> dict[int, Chains]:
+        """Run eligible units through the fused device step.
+
+        `units` is a list of (segs, UnitInfo); eligible units get info.sh
+        filled (anchors from the device, host-computed rep_len / mini_pos)
+        and an entry in the returned {unit_index: Chains} dict. Ineligible
+        or fallback units are left for the staged path."""
+        timers = timers if timers is not None else Timers()
+        opt, mi = self.opt, self.mi
+        results, stats, buckets = self.buckets(units)
+        staged = []
+        for entries, q, kw in buckets:
             with timers.time("kernel"):
-                out = self._launch(q, cap=cb, gq=gq, gr=gr,
-                                   use_exc=CP.infer_use_exc(q["exc"]))
+                out = self._launch(q, **kw)
             staged.append((entries, out))
 
         from ..native import chain_bottom_native

@@ -453,14 +453,20 @@ def ksw_walk_ref(p, poff, meta, ez, *, splice, ops_total):
 
 
 # --------------------------------------------------------------- batch API
-def _batch_async(jobs, mat, gaps, *, splice, noncan, device):
+def forward_scoring(mat, gaps, *, splice) -> tuple:
+    """ksw_forward's `scoring` from the score matrix and gap_params."""
     q, e, q2, e2, long_thres, long_diff = gaps
     if -int(np.asarray(mat).min()) > 2 * (q + e) or (splice and q2 <= q + e):
         raise ValueError("scoring outside the kernel's domain (the "
                          "reference returns an empty result)")
     mat0, sc_mis = int(mat[0]), int(np.int8(mat[1]))
-    scoring = (q, e, q2, e2, mat0, sc_mis, -e if splice else -e2,
-               long_thres, long_diff)
+    return (q, e, q2, e2, mat0, sc_mis, -e if splice else -e2, long_thres,
+            long_diff)
+
+
+def _batch_async(jobs, mat, gaps, *, splice, noncan, device):
+    scoring = forward_scoring(mat, gaps, splice=splice)
+    long_thres = gaps[4]
     dev = torch.device(device)
     staged = []
     for idxs in split_by_budget(jobs, splice, P_BUDGET):

@@ -4,13 +4,12 @@ lane against the host's in one process.
 
 Usage:
   python -m minimap2_chaindp_tpu_torch.tools.e2e_bench [--reads N]
-      [--len L] [--device cuda|cpu|host|pair] [--steady N] [--preset P]
-      [--pairs] [--ref-fa FA] [--index IDX] [--profile]
+      [--len L] [--device pair|cuda|cpu|host] [--pair-lane cuda|cpu]
+      [--steady N] [--preset P] [--pairs] [--ref-fa FA] [--index IDX]
+      [--profile] [--keep-inputs DIR]
 
-Port of tools/e2e_bench.py. `--device cuda|cpu|host` times one lane of the
-port's CLI (`cli.main()` in this process with `--steady N`: one warm-up run,
-then N timed runs, the best printed as `steady:`; without it, `--repeat`
-runs of the CLI as a subprocess, start-up included). `--device pair
+Port of tools/e2e_bench.py. By default (`--device pair --pair-lane cuda
+--steady 3`) it times the card's lane against the host's. `--device pair
 --steady N` interleaves the `--pair-lane` lane (cuda, or cpu with the plain
 versions) and the host lane run by run, the order alternating, run 0 the
 warm-up of both, and prints `runN[dev]` (stderr), `steady[dev]` and
@@ -19,7 +18,13 @@ above 1 the lane is faster), each lane run's `flowN`/`stealN` telemetry
 from `cli.LAST_RUN_COUNTERS` (stderr), the lane's kernel launches over all
 its runs (`launches:`), and `sam_identical: K/K`. Every iteration's lane
 SAM must equal the host lane's apart from `@PG`: a mismatch, or a CLI run
-that fails, exits non-zero.
+that fails, exits non-zero. `--device cuda|cpu|host` times one lane of the
+port's CLI (`cli.main()` in this process: one warm-up run, then `--steady`
+timed runs, the best printed as `steady:`; with `--steady 0`, `--repeat`
+runs of the CLI as a subprocess, start-up included). `--keep-inputs DIR`
+keeps the largest input of each kernel wrapper over the in-process runs
+(utils/kernel_inputs.py) and writes it under DIR, for a check against the
+plain versions afterwards.
 
 With neither `--ref-fa` nor `--index`, the reference is a
 utils/genome_synth genome (GENOME: 25 x 2 Mbp, seed 42) and the runs map
@@ -36,6 +41,7 @@ machine of the port has).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -43,6 +49,8 @@ import tempfile
 import time
 
 import numpy as np
+
+from ..utils import kernel_inputs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -144,8 +152,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reads", type=int, default=400)
     ap.add_argument("--len", dest="read_len", type=int, default=1000)
-    ap.add_argument("--device", default="host",
-                    choices=["cuda", "cpu", "host", "pair"])
+    ap.add_argument("--device", default="pair",
+                    choices=["pair", "cuda", "cpu", "host"])
     ap.add_argument("--pair-lane", default="cuda", choices=["cuda", "cpu"],
                     help="the port's lane that --device pair sets against "
                          "the host lane")
@@ -157,12 +165,14 @@ def main(argv=None):
     ap.add_argument("--pairs", action="store_true",
                     help="simulate --reads FR pairs of --len bp")
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--steady", type=int, default=0, metavar="N",
+    ap.add_argument("--steady", type=int, default=3, metavar="N",
                     help="in-process steady-state timing: 1 warmup + N "
-                         "timed repeats, best reported")
+                         "timed repeats, best reported (0: --repeat "
+                         "subprocess runs; not with --device pair)")
     ap.add_argument("--batch", type=int, default=400)
     ap.add_argument("--repeat", type=int, default=2,
-                    help="timed repeats (first run includes warmup)")
+                    help="timed subprocess runs with --steady 0 (first "
+                         "run includes warmup)")
     ap.add_argument("--ref-fa", default=None,
                     help="reference FASTA (default: the cached synthetic "
                          "genome); reads are simulated from ALL contigs")
@@ -173,6 +183,9 @@ def main(argv=None):
                     help="keep the reads and the last run's SAM of each "
                          "lane (<device>.sam) here (default: a temp "
                          "directory, removed at exit)")
+    ap.add_argument("--keep-inputs", default=None, metavar="DIR",
+                    help="write the largest input of each kernel wrapper "
+                         "over the in-process runs under DIR")
     args = ap.parse_args(argv)
     if args.device == "pair" and not args.steady:
         ap.error("--device pair requires --steady N (paired runs are an "
@@ -185,11 +198,19 @@ def main(argv=None):
         ref_fa = cached_genome(**GENOME)
         target = target or cached_index(ref_fa, args.preset)
     target = target or ref_fa
-    if args.workdir:
-        os.makedirs(args.workdir, exist_ok=True)
-        return _run(args, ref_fa, target, args.workdir)
-    with tempfile.TemporaryDirectory(prefix="e2e_bench_") as work:
-        return _run(args, ref_fa, target, work)
+    keep = kernel_inputs.record() if args.keep_inputs \
+        else contextlib.nullcontext()
+    with keep as rec:
+        if args.workdir:
+            os.makedirs(args.workdir, exist_ok=True)
+            rc = _run(args, ref_fa, target, args.workdir)
+        else:
+            with tempfile.TemporaryDirectory(prefix="e2e_bench_") as work:
+                rc = _run(args, ref_fa, target, work)
+    if rec is not None:
+        names = rec.save(args.keep_inputs)
+        print(f"kept_inputs: {' '.join(names) or 'none'}")
+    return rc
 
 
 def _run(args, ref_fa, target, work):

@@ -6,9 +6,11 @@ deployment exists, so the projection is printed beside the measured rate.
 Per read length, on reads simulated from one genome:
 
 1. the card's time per read of the fused collect + chain step
-   (models/device_flow.flow_step): the inputs of one whole bucket are
-   placed on the card first (H2D excluded), `--iters` dispatches run back
-   to back between two CUDA events (D2H excluded), best of two;
+   (models/device_flow.flow_step) over the buckets DeviceFlow builds for
+   the reads as one batch (DeviceFlow.buckets, as TorchRuntime's device
+   routing calls it): every bucket's inputs are placed on the card first
+   (H2D excluded), `--iters` passes over the buckets run back to back
+   between two CUDA events (D2H excluded), best of two;
 2. the host path's time per read and its stage split from the native
    library's stage counters (MM2TPU_PROF=1: sketch/collect/chain/finish/
    align/text), giving the residual the host keeps when collect and chain
@@ -26,18 +28,20 @@ Usage:
   python -m minimap2_chaindp_tpu_torch.tools.flow_projection
       [--lengths 1000,3000,10000,20000] [--reads 64] [--iters 3] [--json]
       [--device cuda|cpu] [--preset map-ont] [--ref FA] [--index IDX]
+      [--keep-inputs DIR]
 
 Prints one line per length (without --json) and, last, one JSON object.
+`--keep-inputs DIR` writes the largest input of each kernel wrapper over
+the run under DIR (utils/kernel_inputs.py).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 import time
-
-import numpy as np
 
 PCIE_GBPS = 16.0   # PCIe4 x16-class host<->accelerator link
 
@@ -48,101 +52,37 @@ def build_ref():
     return cached_genome(n_contigs=3, contig_len=2_000_000, seed=7)
 
 
-def bucket_inputs(mi, mo, segs):
-    """The original's eligibility and packing (:114-176): seed each read on
-    the host, keep those the flow takes, and pack them into one bucket of
-    R (a power of two, at least 8) rows. Returns (q, dims, counts) with q
-    the bucket's numpy inputs, dims its (mb, cb, gq, gr, use_exc) and
-    counts (n_units, drops, anchors)."""
-    from ..models.device_flow import CAP_BUCKETS, M_BUCKETS, host_seed_stats
+def flow_units(mi, mo, frags):
+    """The units TorchRuntime's device routing hands DeviceFlow.run for
+    one batch of `frags` (models/runtime.py:_map_batch1)."""
     from ..models.pipeline import prepare_frag, seed_unit
-    from ..ops import chain_pack as CP
-    units, stats, drops = [], [], 0
-    for s in segs:
-        _w, _f, us = prepare_frag(mo, [s])
-        info = seed_unit(mi, mo, us[0], collect_hits=False)
-        if info.mv is None or not len(info.mv):
-            drops += 1
-            continue
-        n, span_sum, over, pos, occ = host_seed_stats(mi, info.mv,
-                                                      mo.mid_occ)
-        if n == 0 or len(info.mv) > M_BUCKETS[-1] or n > CAP_BUCKETS[-1]:
-            drops += 1
-            continue
-        avg = np.float32(span_sum) / np.float32(n)
-        if avg < 1.6:
-            drops += 1
-            continue
-        w1, excl = CP.clin_slope_exc(avg)
-        if excl is None:
-            drops += 1
-            continue
-        units.append(info)
-        stats.append((n, over, pos, occ, w1, excl))
-    if not units:
-        return None, None, (0, drops, 0)
-    mb = next(m for m in M_BUCKETS if all(len(u.mv) <= m for u in units))
-    cb = next(c for c in CAP_BUCKETS if all(st[0] <= c for st in stats))
-    R = 8
-    while R < len(units):
-        R *= 2
-    q = dict(qposidx=np.full((R, mb), -1, np.int32),
-             qpos=np.zeros((R, mb), np.int32),
-             qspan8=np.zeros((R, mb), np.uint8),
-             qls=np.zeros((R, 1), np.int32),
-             nn=np.zeros((R, CP.LANES), np.int32),
-             w1=np.zeros((R, CP.LANES), np.float32),
-             exc=np.full((R, CP.LANES), -1, np.int32))
-    n_anchors = 0
-    for r, (info, (n, over, pos, occ, w1, excl)) in enumerate(
-            zip(units, stats)):
-        mv = info.mv
-        nmv = len(mv)
-        q["qposidx"][r, :nmv] = np.where((occ > 0) | over, pos, -1)
-        q["qpos"][r, :nmv] = (mv[:, 1] & np.uint64(0xFFFFFFFF)).astype(
-            np.int64)
-        q["qspan8"][r, :nmv] = (mv[:, 0] & np.uint64(0xFF)).astype(np.int64)
-        q["qls"][r, 0] = info.qlen_sum
-        q["nn"][r, 0] = n
-        q["w1"][r, 0] = w1
-        for j, (dd, val) in enumerate(excl):
-            q["exc"][r, 2 * j] = dd
-            q["exc"][r, 2 * j + 1] = val
-        n_anchors += n
-    dims = (mb, cb, units[0].gap_qry, units[0].gap_ref,
-            CP.infer_use_exc(q["exc"]))
-    return q, dims, (len(units), drops, n_anchors)
+    return [(u, seed_unit(mi, mo, u, collect_hits=False))
+            for fr in frags for u in prepare_frag(mo, fr.segs)[2]]
 
 
-def flow_ms(flow, mo, q, dims, iters):
-    """Best of two runs of `iters` back-to-back flow_step dispatches on the
-    bucket, CUDA events around each run, in ms; off the card one dispatch
-    and None."""
+def flow_ms(flow, buckets, iters):
+    """Best of two runs of `iters` passes of back-to-back flow_step
+    dispatches over every bucket, CUDA events around each run, in ms; off
+    the card one pass and None."""
     import torch
-    from ..models.device_flow import flow_step
-    mb, cb, gq, gr, use_exc = dims
-    dev = flow.device
-    args = [torch.from_numpy(q[k]).to(dev)
-            for k in ("qposidx", "qpos", "qspan8")]
-    tail = [torch.from_numpy(q[k]).to(dev) for k in ("qls", "nn", "w1", "exc")]
+    placed = [(flow.place(q), kw) for _entries, q, kw in buckets]
 
-    def dispatch():
-        return flow_step(flow.dx, *args, mo.mid_occ, *tail, cap=cb,
-                         max_dist_x=gr, max_dist_y=gq, bw=mo.bw,
-                         max_skip=mo.max_chain_skip, use_exc=use_exc)
+    def one_pass():
+        for d, kw in placed:
+            flow.step(d, **kw)
 
-    dispatch()                      # warm
-    if dev.type != "cuda":
+    one_pass()                      # warm
+    if flow.device.type != "cuda":
         return None
-    dispatch()
-    torch.cuda.synchronize(dev)
+    one_pass()
+    torch.cuda.synchronize(flow.device)
     best = None
     for _rep in range(2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            dispatch()
+            one_pass()
         end.record()
         end.synchronize()
         ms = start.elapsed_time(end)
@@ -166,6 +106,88 @@ def measured_rate(mi, mo, frags, device):
     return len(frags) / dt, lines == HostRuntime(mi, mo).map_batch(frags)
 
 
+def one_length(args, mi, mo, flow, ref, L, device, on_card) -> dict:
+    """The row of one read length (module docstring)."""
+    from .. import native
+    from ..io.fastx import read_fastx, read_frags
+    from ..utils.genome_synth import cache_dir, simulate
+    qpath = os.path.join(
+        cache_dir(), f"reads_{os.path.basename(ref)}_{L}_{args.reads}.fa")
+    if not os.path.exists(qpath):
+        tmp = f"{qpath}.{os.getpid()}.tmp"
+        simulate(ref, tmp, args.reads, L, 0.10, seed=11)
+        os.replace(tmp, qpath)
+    segs = list(read_fastx(qpath))
+    frags = [f for b in read_frags([qpath], 1 << 40, False) for f in b]
+    _results, _stats, buckets = flow.buckets(flow_units(mi, mo, frags))
+    if not buckets:
+        return {"error": "no eligible reads"}
+    n_units = sum(len(entries) for entries, _q, _kw in buckets)
+    n_anchors = sum(int(q["nn"][:, 0].sum()) for _e, q, _kw in buckets)
+    mb = max(q["qpos"].shape[1] for _e, q, _kw in buckets)
+    cb = max(kw["cap"] for _e, _q, kw in buckets)
+    best_ms = flow_ms(flow, buckets, args.iters)
+
+    # host path + stage split on the same reads
+    native.prof_reset()
+    native.map_batch_text_native(mi, mo, segs, "")   # warm
+    native.prof_reset()
+    t0 = time.perf_counter()
+    native.map_batch_text_native(mi, mo, segs, "")
+    host_ms = (time.perf_counter() - t0) * 1000.0 / len(segs)
+    prof = native.prof_read() or {}
+    repl_ms = (prof.get("collect", 0) + prof.get("chain", 0)) \
+        / 1e6 / len(segs)
+    resid_ms = max(host_ms - repl_ms, 1e-6)
+
+    rate, same = measured_rate(mi, mo, frags, device)
+    if not same:
+        raise SystemExit(f"[flow_projection] L={L}: TorchRuntime's "
+                         "lines differ from HostRuntime's")
+    apr = n_anchors / n_units
+    # per-read bytes a PCIe link moves for this step (the original's
+    # estimate, at the widest bucket)
+    xfer_b = 2.0 * mb / 1024 * 1024 + 18.0 * apr
+    row = {
+        "n_reads": n_units, "dropped": len(segs) - n_units,
+        "anchors_per_read": round(apr, 1),
+        "minimizer_bucket": mb, "anchor_cap": cb,
+        "rows": n_units,
+        "buckets": [[q["qpos"].shape[1], kw["cap"], len(entries)]
+                    for entries, q, kw in buckets],
+        "host_stages": sorted(k for k, v in prof.items() if v > 0),
+        "pcie_transfer_us_per_read": round(xfer_b / (PCIE_GBPS * 1e3), 1),
+        "sam_identical": same,
+        "flow_device_ms_per_read": None,
+        "host_ms_per_read": None,
+        "host_replaced_ms_per_read": None,
+        "host_residual_ms_per_read": None,
+        "projected_reads_per_s": None,
+        "measured_reads_per_s": None,
+        "measured_host_reads_per_s_1core": None,
+    }
+    if on_card:
+        fms = best_ms / (args.iters * n_units)
+        row.update(
+            flow_device_ms_per_read=round(fms, 4),
+            host_ms_per_read=round(host_ms, 3),
+            host_replaced_ms_per_read=round(repl_ms, 3),
+            host_residual_ms_per_read=round(resid_ms, 3),
+            projected_reads_per_s=round(1000.0 / max(fms, resid_ms), 1),
+            measured_reads_per_s=round(rate, 1),
+            measured_host_reads_per_s_1core=round(1000.0 / host_ms, 1))
+    if not args.json:
+        print(f"L={L}: {n_units} reads, {row['anchors_per_read']} "
+              f"anchors/read, buckets {row['buckets']} (mb, cap, rows) | "
+              f"flow {row['flow_device_ms_per_read']} ms/read on the card | "
+              f"host {row['host_ms_per_read']} ms/read (replaced "
+              f"{row['host_replaced_ms_per_read']}, residual "
+              f"{row['host_residual_ms_per_read']}) | projected "
+              f"{row['projected_reads_per_s']}, measured "
+              f"{row['measured_reads_per_s']} reads/s", flush=True)
+    return row
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--lengths", default="1000,3000,10000,20000")
@@ -180,6 +202,9 @@ def main(argv=None):
     ap.add_argument("--index", default=None,
                     help="prebuilt .mm2i to measure against; --ref "
                          "supplies the read source")
+    ap.add_argument("--keep-inputs", default=None, metavar="DIR",
+                    help="write the largest input of each kernel wrapper "
+                         "under DIR")
     args = ap.parse_args(argv)
     # the native library reads this at its first call
     os.environ.setdefault("MM2TPU_PROF", "1")
@@ -188,13 +213,13 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("[flow_projection] --device cuda: no CUDA device "
                          "is available (use --device cpu)")
-    from .. import constants as C, native
+    from .. import constants as C
     from ..index.build import build_index
-    from ..io.fastx import read_fastx, read_frags
+    from ..io.fastx import read_fastx
     from ..models.device_flow import DeviceFlow
     from ..options import set_opt
+    from ..utils import kernel_inputs
     from .e2e_bench import launches
-    from ..utils.genome_synth import cache_dir, simulate
 
     on_card = args.device == "cuda"
     device = "cuda:0" if on_card else "cpu"
@@ -218,79 +243,14 @@ def main(argv=None):
         dev_desc = dict(platform="cpu")
     out = {"device": dev_desc, "h2d_excluded": True, "pcie_gbps": PCIE_GBPS,
            "per_length": {}}
-    for L in [int(x) for x in args.lengths.split(",")]:
-        qpath = os.path.join(
-            cache_dir(), f"reads_{os.path.basename(ref)}_{L}_{args.reads}.fa")
-        if not os.path.exists(qpath):
-            tmp = f"{qpath}.{os.getpid()}.tmp"
-            simulate(ref, tmp, args.reads, L, 0.10, seed=11)
-            os.replace(tmp, qpath)
-        segs = list(read_fastx(qpath))
-        q, dims, (n_units, drops, n_anchors) = bucket_inputs(
-            mi, mo, segs)
-        if q is None:
-            out["per_length"][L] = {"error": "no eligible reads"}
-            continue
-        mb, cb = dims[0], dims[1]
-        best_ms = flow_ms(flow, mo, q, dims, args.iters)
-
-        # host path + stage split on the same reads
-        native.prof_reset()
-        native.map_batch_text_native(mi, mo, segs, "")   # warm
-        native.prof_reset()
-        t0 = time.perf_counter()
-        native.map_batch_text_native(mi, mo, segs, "")
-        host_ms = (time.perf_counter() - t0) * 1000.0 / len(segs)
-        prof = native.prof_read() or {}
-        repl_ms = (prof.get("collect", 0) + prof.get("chain", 0)) \
-            / 1e6 / len(segs)
-        resid_ms = max(host_ms - repl_ms, 1e-6)
-
-        frags = [f for b in read_frags([qpath], 1 << 40, False) for f in b]
-        rate, same = measured_rate(mi, mo, frags, device)
-        if not same:
-            raise SystemExit(f"[flow_projection] L={L}: TorchRuntime's "
-                             "lines differ from HostRuntime's")
-        apr = n_anchors / n_units
-        # per-read bytes a PCIe link moves for this step
-        xfer_b = 2.0 * mb / 1024 * 1024 + 18.0 * apr
-        row = {
-            "n_reads": n_units, "dropped": drops,
-            "anchors_per_read": round(apr, 1),
-            "minimizer_bucket": mb, "anchor_cap": cb,
-            "rows": int(q["nn"].shape[0]),
-            "host_stages": sorted(k for k, v in prof.items() if v > 0),
-            "pcie_transfer_us_per_read": round(
-                xfer_b / (PCIE_GBPS * 1e3), 1),
-            "sam_identical": same,
-            "flow_device_ms_per_read": None,
-            "host_ms_per_read": None,
-            "host_replaced_ms_per_read": None,
-            "host_residual_ms_per_read": None,
-            "projected_reads_per_s": None,
-            "measured_reads_per_s": None,
-            "measured_host_reads_per_s_1core": None,
-        }
-        if on_card:
-            fms = best_ms / (args.iters * n_units)
-            row.update(
-                flow_device_ms_per_read=round(fms, 4),
-                host_ms_per_read=round(host_ms, 3),
-                host_replaced_ms_per_read=round(repl_ms, 3),
-                host_residual_ms_per_read=round(resid_ms, 3),
-                projected_reads_per_s=round(1000.0 / max(fms, resid_ms), 1),
-                measured_reads_per_s=round(rate, 1),
-                measured_host_reads_per_s_1core=round(1000.0 / host_ms, 1))
-        out["per_length"][L] = row
-        if not args.json:
-            print(f"L={L}: {n_units} reads, {row['anchors_per_read']} "
-                  f"anchors/read, bucket {mb}x{cb} | flow "
-                  f"{row['flow_device_ms_per_read']} ms/read on the card | "
-                  f"host {row['host_ms_per_read']} ms/read (replaced "
-                  f"{row['host_replaced_ms_per_read']}, residual "
-                  f"{row['host_residual_ms_per_read']}) | projected "
-                  f"{row['projected_reads_per_s']}, measured "
-                  f"{row['measured_reads_per_s']} reads/s", flush=True)
+    keep = kernel_inputs.record() if args.keep_inputs \
+        else contextlib.nullcontext()
+    with keep as rec:
+        for L in [int(x) for x in args.lengths.split(",")]:
+            out["per_length"][L] = one_length(args, mi, mo, flow, ref, L,
+                                              device, on_card)
+    if rec is not None:
+        rec.save(args.keep_inputs)
     out["launches"] = launches()
     print(json.dumps(out))
     return 0

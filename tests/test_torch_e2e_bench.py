@@ -69,6 +69,36 @@ def test_pair_cpu_matches_host_and_jax_cli(genome, tmp_path):
     assert lanes["host"] == _body(jax_sam)
 
 
+def test_pair_keeps_the_largest_kernel_inputs(genome, tmp_path):
+    """--keep-inputs writes the largest chain input of the lane's runs
+    (utils/kernel_inputs.py); on it the port's chain wrapper equals the JAX
+    package's Pallas kernel in interpret mode."""
+    import numpy as np
+    from minimap2_chaindp_tpu_torch.ops.chain_dp import chain_scores_batch
+    from minimap2_chaindp_tpu_torch.utils import kernel_inputs
+    keep = tmp_path / "keep"
+    rc, out, err = _run("minimap2_chaindp_tpu_torch.tools.e2e_bench",
+                        ["--ref-fa", genome, "--reads", "6", "--len",
+                         "2000", "--device", "pair", "--pair-lane", "cpu",
+                         "--steady", "1", "--workdir", str(tmp_path),
+                         "--keep-inputs", str(keep)])
+    assert rc == 0, err
+    assert "kept_inputs: chain_single" in out
+    kept = kernel_inputs.load(str(keep), "cpu")
+    args, kw = kept["chain_single"]
+    assert kw["max_n"] == args[1].shape[1] and int(args[6][:, 0].max()) > 0
+    got = [t.numpy() for t in chain_scores_batch(*args, **kw)]
+    from minimap2_chaindp_tpu.ops import chain_pallas as CP
+    R = args[0].shape[0]
+    pad = -R % 8
+    fill = lambda a: np.concatenate(
+        [a.numpy(), np.full((pad, *a.shape[1:]), -1 if a is args[8] else 0,
+                            a.numpy().dtype)])
+    want = CP.chain_scores_batch(*map(fill, args), **kw, interpret=True)
+    for name, g, w in zip(("f", "p", "flag"), got, want):
+        assert np.array_equal(g, np.asarray(w)[:R]), name
+
+
 def test_pair_sam_mismatch_exits_nonzero(genome, tmp_path, monkeypatch):
     """The check new to the port's copy: a lane whose SAM differs from the
     host lane's fails the run."""

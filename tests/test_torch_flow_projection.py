@@ -1,11 +1,13 @@
 """The port's tools/flow_projection.py on the CPU (`--device cpu`, the plain
-versions): its counts equal the JAX tool's `--interpret` run on the same
-genome and reads (reads kept and dropped, anchors per read), its bucket
-equals the one the JAX package's own functions give those reads, the host
-stage counters cover every stage, TorchRuntime's lines equal
-HostRuntime's, and every time field is null. The JAX side is imported
-inside the tests, so that the card's test of this file runs where JAX is
-absent:
+versions): its counts equal the ones the JAX package's own functions give
+the same genome and reads (the JAX tool's eligibility, tools/
+flow_projection.py:114-176: reads kept and dropped, anchors per read, the
+widest bucket and the transfer estimate, and the buckets JAX's DeviceFlow
+groups the reads into), the host stage counters cover every stage,
+TorchRuntime's lines equal HostRuntime's, and every time field is null.
+Everything the tool writes stays under the test's temp directory. The JAX
+side is imported inside the tests, so that the card's test of this file
+runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_flow_projection.py
 """
@@ -13,7 +15,6 @@ import json
 import os
 import subprocess
 import sys
-import uuid
 
 import numpy as np
 import pytest
@@ -32,13 +33,12 @@ TIME_FIELDS = ("flow_device_ms_per_read", "host_ms_per_read",
                "host_replaced_ms_per_read", "host_residual_ms_per_read",
                "projected_reads_per_s", "measured_reads_per_s",
                "measured_host_reads_per_s_1core")
+PCIE_GBPS = 16.0    # the JAX tool's link rate, for its transfer estimate
 
 
 @pytest.fixture(scope="module")
 def genome(tmp_path_factory):
-    # a name of its own: the JAX tool caches its reads in /tmp/flow_proj
-    # under the genome's base name
-    ref = str(tmp_path_factory.mktemp("flow") / f"g{uuid.uuid4().hex}.fa")
+    ref = str(tmp_path_factory.mktemp("flow") / "g.fa")
     make_genome(ref, n_contigs=2, contig_len=200_000, seed=41)
     return ref
 
@@ -52,9 +52,11 @@ def _port(genome, tmp_path, device):
     return out.returncode, out.stdout, out.stderr
 
 
-def _jax_bucket(genome, reads):
-    """The JAX tool's eligibility and bucket choice (tools/
-    flow_projection.py:114-143) through the JAX package's functions."""
+def _jax_counts(genome, reads):
+    """The JAX tool's count fields (tools/flow_projection.py:114-176) and
+    JAX DeviceFlow's buckets (models/device_flow.py:310-357: key (mb, cb,
+    gap_qry, gap_ref), sorted) as [mb, cb, reads], through the JAX
+    package's functions."""
     from minimap2_chaindp_tpu import constants as C
     from minimap2_chaindp_tpu.index.build import build_index
     from minimap2_chaindp_tpu.io.fastx import read_fastx
@@ -69,50 +71,58 @@ def _jax_bucket(genome, reads):
     mi = build_index([r.name for r in refs], [r.seq for r in refs],
                      io_.w, io_.k, io_.flag, io_.bucket_bits)
     mo.update(mi)
-    nmv, ns = [], []
+    drops, n_anchors, keys = 0, 0, []
     for s in read_fastx(reads):
         _w, _f, us = prepare_frag(mo, [s])
         info = seed_unit(mi, mo, us[0], collect_hits=False)
         if info.mv is None or not len(info.mv):
+            drops += 1
             continue
         n, span_sum, *_ = host_seed_stats(mi, info.mv, mo.mid_occ)
         if n == 0 or len(info.mv) > M_BUCKETS[-1] or n > CAP_BUCKETS[-1]:
+            drops += 1
             continue
         avg = np.float32(span_sum) / np.float32(n)
         if avg < 1.6 or CP.clin_slope_exc(avg)[1] is None:
+            drops += 1
             continue
-        nmv.append(len(info.mv))
-        ns.append(n)
-    return (next(m for m in M_BUCKETS if max(nmv) <= m),
-            next(c for c in CAP_BUCKETS if max(ns) <= c))
+        n_anchors += n
+        keys.append((next(m for m in M_BUCKETS if len(info.mv) <= m),
+                     next(c for c in CAP_BUCKETS if n <= c),
+                     info.gap_qry, info.gap_ref))
+    apr = n_anchors / len(keys)
+    mb = max(k[0] for k in keys)
+    xfer_b = 2.0 * mb / 1024 * 1024 + 18.0 * apr
+    return dict(n_reads=len(keys), dropped=drops,
+                anchors_per_read=round(apr, 1),
+                pcie_transfer_us_per_read=round(xfer_b / (PCIE_GBPS * 1e3),
+                                                1),
+                minimizer_bucket=mb, anchor_cap=max(k[1] for k in keys),
+                buckets=[[k[0], k[1], keys.count(k)]
+                         for k in sorted(set(keys))])
+
+
+def _written(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _dirs, fs in os.walk(root) for f in fs)
 
 
 def test_flow_projection_cpu_counts_match_jax(genome, tmp_path):
-    rc, out, err = _port(genome, tmp_path, "cpu")
+    work = tmp_path / "tmp"
+    work.mkdir()
+    rc, out, err = _port(genome, work, "cpu")
     assert rc == 0, err
     rec = json.loads(out.strip().splitlines()[-1])
     assert rec["device"] == {"platform": "cpu"}
     row = rec["per_length"]["1000"]
-    jax = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "tools", "flow_projection.py"),
-         *ARGS, "--interpret", "--ref", genome],
-        capture_output=True, text=True, cwd=ROOT, timeout=600,
-        env=dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu"))
-    cached = os.path.join("/tmp", "flow_proj",
-                          f"reads_{os.path.basename(genome)}_1000.fa")
-    try:
-        assert jax.returncode == 0, jax.stderr
-        want = json.loads(jax.stdout.strip().splitlines()[-1])
-        want = want["per_length"]["1000"]
-        for key in ("n_reads", "dropped", "anchors_per_read",
-                    "pcie_transfer_us_per_read"):
-            assert row[key] == want[key], key
-        assert (row["minimizer_bucket"], row["anchor_cap"]) == \
-            _jax_bucket(genome, cached)
-    finally:
-        if os.path.exists(cached):
-            os.remove(cached)
-    assert row["n_reads"] == 4 and row["rows"] == 8
+    # the tool wrote its reads into the cache under its TMPDIR, and nothing
+    # else anywhere
+    reads = os.path.join(work, "mm2tpu_torch_cache", "reads_g.fa_1000_4.fa")
+    assert _written(work) == [os.path.relpath(reads, work)]
+    want = _jax_counts(genome, reads)
+    for key, value in want.items():
+        assert row[key] == value, key
+    assert row["n_reads"] == 4 and row["rows"] == 4
     assert row["host_stages"] == STAGES
     assert row["sam_identical"] is True
     for key in TIME_FIELDS:

@@ -59,6 +59,7 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.utils.chain_corpus",
     "minimap2_chaindp_tpu_torch.utils.chain_sweep",
     "minimap2_chaindp_tpu_torch.utils.genome_synth",
+    "minimap2_chaindp_tpu_torch.utils.kernel_inputs",
     "minimap2_chaindp_tpu_torch.utils.ksw_sweep",
     "minimap2_chaindp_tpu_torch.utils.mesh_sweep",
     "minimap2_chaindp_tpu_torch.utils.mlog",
