@@ -57,16 +57,33 @@ Phases, each printing its own lines:
      the largest input of each kernel wrapper that each row and the flow
      row kept (`--keep-inputs`, utils/kernel_inputs.py): the chain kernel
      by mode in every row, the ksw2 forward and walk kernels on the sr
-     row's largest extension launch (and any other row's).
+     row's largest extension launch (and any other row's). Before and
+     after the bench the card's SM clock, power, temperature and compute
+     processes are logged; every runtime of phases 4-8 is closed where
+     it was used, and none may still keep a thread or a mesh rank.
+ 10. the presets of the JAX package on phase 9's 50 Mbp genome, each
+     through TorchRuntime on the card and HostRuntime at -t 3, byte-
+     identical: sr single-end reads, map-pb reads and a cut of them under
+     map10k, an all-vs-all set under ava-ont and ava-pb (PAF; a cut with
+     -c), contigs under asm5, asm10 and asm20; every kernel wrapper's
+     largest input of each run held against the plain version; then the
+     option cases (OPTION_CASES, the list the CPU tests share) through
+     the port's CLI in this process, --device cuda against --device host,
+     each case's largest kernel inputs held against the plain versions
+     too. The chain kernel must launch on the sr, map-pb and ava paths,
+     the ksw2 kernels on the asm paths.
 In phases 5 and 6 the chain kernel (on the largest input of each of its
 modes) and the ksw2 kernels (on the largest launch) are checked and timed
 again on the inputs the path gave them.
-Each of phases 4-6, each run of phase 7 and each path of phase 8 (entry(),
-each timed run of the two meshes, the dry run) sets the launch counters to
-0 just before its run and reads them just after; the kernels line counts
-phases 4, 5, 6, 8 and 9 (phase 9's processes start from 0 and report
-their counts in the bench's record). A mesh's other ranks are processes
-of their own, but in a 1 x I mesh rank 0 runs every chain (the index-0
+Each of phases 4-6, each run of phase 7, each path of phase 8 (entry(),
+each timed run of the two meshes, the dry run) and each run and option
+case of phase 10 sets the launch counters to 0 just before its run and
+reads them just after; the kernels line counts phases 4, 5, 6, 8, 9 and 10
+(phase 9's processes start from 0 and report their counts in the bench's
+record), with phase 9's and phase 10's also apart (launches_phase9,
+launches_phase10) beside the checks of their kept inputs (in
+checks_phase10 the option cases' as opt_<case>). A mesh's other ranks
+are processes of their own, but in a 1 x I mesh rank 0 runs every chain (the index-0
 rank of a data row chains it, models/device_pipeline.py).
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
@@ -164,9 +181,9 @@ LANE_EXT_MAX = 256              # bases of query plus target
 # phase 8: the host routing and HostRuntime in turns, ABAB then BABA
 HOST_GAP_ORDER = "ABABBABA"
 # phase 9: the port's bench at the headline's full shape (8192 x 1024), its
-# end-to-end rows cut to a quarter of their reads and 2 timed pairs each
-# (the cut keeps the smoke inside its time limit)
-BENCH_E2E_SCALE = 0.25
+# end-to-end rows cut to an eighth of their reads and 2 timed pairs each
+# (the cut keeps the smoke, phase 10 included, inside its time limit)
+BENCH_E2E_SCALE = 0.125
 BENCH_STEADY = 2
 BENCH_TIMEOUT_S = 600
 
@@ -780,6 +797,22 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------- phase 4
+def _reset_launches():
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    TD.chain_scores_batch.launches = 0
+    TD.chain_scores_batch.by_form = dict.fromkeys(TD.FORMS, 0)
+    KE.ksw_forward.launches = KE.ksw_walk.launches = 0
+    KE.ksw_forward.by_variant = dict.fromkeys(KE.ksw_forward.by_variant, 0)
+
+
+def _read_launches():
+    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    return dict(chain=TD.chain_scores_batch.launches,
+                ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches)
+
+
 def _cached(path, make, *more):
     """Make `path` (and the companion files `more`) unless they exist:
     make() writes temporary names that are renamed when it returns."""
@@ -842,11 +875,13 @@ def phase_e2e():
     t0 = time.perf_counter()
     host_lines = [ls for b in host.map_stream(batches) for ls in b]
     t_host = time.perf_counter() - t0
+    host.close()
 
     t0 = time.perf_counter()
-    TorchRuntime(mi, mo, device="cuda", n_threads=THREADS) \
-        .map_batch(warm)          # uploads the index, warms the allocator
+    warm_rt = TorchRuntime(mi, mo, device="cuda", n_threads=THREADS)
+    warm_rt.map_batch(warm)       # uploads the index, warms the allocator
     torch.cuda.synchronize()
+    warm_rt.close()
     t_up = time.perf_counter() - t0
     dx = DF.device_index_cached(mi, "cuda")
     rt = TorchRuntime(mi, mo, device="cuda", n_threads=THREADS)
@@ -876,6 +911,7 @@ def phase_e2e():
     launches = TD.chain_scores_batch.launches
     by_form = dict(TD.chain_scores_batch.by_form)
     peak = torch.cuda.max_memory_allocated()
+    rt.close()
 
     c = rt.timers.counters
     check(len(port_lines) == len(host_lines) == n_reads,
@@ -1033,9 +1069,11 @@ def _staged_run(phase, mi, mo, batches):
     t0 = time.perf_counter()
     host_lines = [ls for b in host.map_stream(batches) for ls in b]
     t_host = time.perf_counter() - t0
-    RT.TorchRuntime(mi, mo, device="cuda", n_threads=THREADS) \
-        .map_batch(warm)
+    host.close()
+    warm_rt = RT.TorchRuntime(mi, mo, device="cuda", n_threads=THREADS)
+    warm_rt.map_batch(warm)
     torch.cuda.synchronize()
+    warm_rt.close()
     rt = RT.TorchRuntime(mi, mo, device="cuda", n_threads=THREADS)
     rec = dict(modes={}, chain_in={}, biggest=None, cells=-1,
                planned=set())
@@ -1059,10 +1097,7 @@ def _staged_run(phase, mi, mo, batches):
         rec["planned"] |= {g["variant"] for g in pk["groups"]}
         return pk
     RT.chain_scores_batch, KE.pack_jobs = chain, pack
-    TD.chain_scores_batch.launches = 0
-    TD.chain_scores_batch.by_form = dict.fromkeys(TD.FORMS, 0)
-    KE.ksw_forward.launches = KE.ksw_walk.launches = 0
-    KE.ksw_forward.by_variant = dict.fromkeys(KE.ksw_forward.by_variant, 0)
+    _reset_launches()
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
@@ -1071,6 +1106,7 @@ def _staged_run(phase, mi, mo, batches):
         t_port = time.perf_counter() - t0
     finally:
         RT.chain_scores_batch, KE.pack_jobs = real_chain, real_pack
+    rt.close()
     rec.update(chain=TD.chain_scores_batch.launches,
                chain_by_form=dict(TD.chain_scores_batch.by_form),
                ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches,
@@ -1186,8 +1222,6 @@ def _lane_run(label, mi, mo, batches, host_lines, t_host, **kw):
     HostRuntime's. Returns a dict of the run's numbers."""
     import torch
     from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
-    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
-    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
     frags = [f for b in batches for f in b]
     rt = TorchRuntime(mi, mo, device="cuda", n_threads=THREADS, **kw)
     rt.map_batch(frags[:16])
@@ -1196,15 +1230,13 @@ def _lane_run(label, mi, mo, batches, host_lines, t_host, **kw):
         d.clear()
     ex = rt.align_exec
     ex.n_device = ex.n_native = ex.n_host = 0
-    TD.chain_scores_batch.launches = 0
-    KE.ksw_forward.launches = KE.ksw_walk.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     lines = [ls for b in rt.map_stream(batches) for ls in b]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     rt.close()
-    launches = dict(chain=TD.chain_scores_batch.launches,
-                    ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches)
+    launches = _read_launches()
     n_diff = sum(a != b for a, b in zip(lines, host_lines))
     check(len(lines) == len(host_lines) and n_diff == 0,
           f"phase 7 {label}: {n_diff} fragments' SAM lines differ from "
@@ -1238,6 +1270,7 @@ def phase_lanes(e2e, spl, pe):
     t0 = time.perf_counter()
     host_lines = [ls for b in host.map_stream(batches) for ls in b]
     t_host = time.perf_counter() - t0
+    host.close()
     log(f"phase 7 inputs: phase 4's {len(host_lines)} reads in "
         f"{len(batches)} batches of {[len(b) for b in batches]} reads")
     lane = dict(mi=mi, mo=mo, batches=batches, host_lines=host_lines,
@@ -1552,7 +1585,8 @@ def _phase8_host_gap(e2e):
         rates[who].append(n / (time.perf_counter() - t0))
         want = want or lines
         check(lines == want, "phase 8 (f): the two runtimes' lines differ")
-    runs["A"].close()
+    for rt in runs.values():
+        rt.close()
     gap = [a / b - 1 for a, b in zip(rates["A"], rates["B"])]
     log(f"phase 8 (f) host routing (A) against HostRuntime (B), -t "
         f"{THREADS}, {HOST_GAP_ORDER}: A "
@@ -1593,6 +1627,36 @@ def phase_rest(e2e):
 
 
 # ---------------------------------------------------------------- phase 9
+CARD_STATE = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
+
+
+def _card_state(when: str) -> dict:
+    """The card's SM clock (and its maximum), power draw and temperature,
+    its compute processes, and what this process still runs: threads of
+    the runtimes' -t pools and child processes (a mesh's ranks). Logged
+    and returned."""
+    import multiprocessing
+    import threading
+    q = subprocess.run(["nvidia-smi", f"--query-gpu={CARD_STATE}",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                           "process_name,used_memory",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60)
+    pools = sorted(t.name for t in threading.enumerate()
+                   if t.name.startswith("mm2tpu-"))
+    kids = [c.pid for c in multiprocessing.active_children()]
+    state = dict(gpu=q.stdout.strip(), apps=[a.strip() for a in
+                                             apps.stdout.splitlines()
+                                             if a.strip()],
+                 pool_threads=pools, children=kids)
+    log(f"phase 9 card {when}: {CARD_STATE} = {state['gpu']}; compute "
+        f"processes {state['apps']}; this process's runtime threads "
+        f"{pools or 'none'}, child processes {kids or 'none'}")
+    return state
+
+
 def phase_bench():
     """The port's bench (minimap2_chaindp_tpu_torch/bench.py) as a
     subprocess: its record must parse, stay under 2000 characters, name
@@ -1611,6 +1675,14 @@ def phase_bench():
     t0 = time.perf_counter()
     keep = os.path.join(SMOKE_DIR, "bench_inputs")
     shutil.rmtree(keep, ignore_errors=True)
+    # every runtime of phases 4-8 was closed where it was used: none may
+    # still hold a thread or a mesh rank; this process's cached device
+    # memory goes back to the card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = _card_state("before the bench")
+    check(not before["pool_threads"] and not before["children"],
+          "phase 9: a runtime of phases 4-8 is still running")
     out = subprocess.run(
         [sys.executable, "-m", "minimap2_chaindp_tpu_torch.bench",
          "--e2e-scale", str(BENCH_E2E_SCALE), "--steady", str(BENCH_STEADY),
@@ -1619,6 +1691,7 @@ def phase_bench():
     for line in out.stderr.splitlines():
         if line.startswith("[bench]"):
             log(f"phase 9 {line}")
+    after = _card_state("after the bench")
     check(out.returncode == 0, f"phase 9: the bench exited "
           f"{out.returncode}: {out.stderr.strip()[-2000:]}")
     last = out.stdout.strip().splitlines()[-1]
@@ -1684,6 +1757,360 @@ def phase_bench():
     return dict(launches=n, secs=secs, chain=chain, ksw=ksw)
 
 
+# --------------------------------------------------------------- phase 10
+# the presets of the JAX package (options.py:110-170) on phase 9's cached
+# 50 Mbp genome (the bench's cache): sr single-end reads, map-pb reads of
+# 10 kb (map10k is the same option set: a cut of them), an all-vs-all set
+# of about 20x over the genome's first 200 kb under ava-ont and ava-pb
+# (PAF; one cut with -c), and contigs of 20 kb at each asm preset's
+# divergence. Each TorchRuntime run on the card at -t THREADS against
+# HostRuntime, and the option cases of tests/test_torch_options.py through
+# the port's CLI on a small genome, --device cuda against --device host.
+P10_GENOME = (25, 2_000_000, 42)
+P10_SR = (5000, 150, 0.01)                  # reads, length, error
+P10_PB = (500, 10_000, 0.10)
+P10_MAP10K_READS = 100
+P10_AVA = (200_000, 800, 5000, 0.10)        # region, reads, length, error
+P10_AVA_C_READS = 100
+P10_ASM = {"asm5": 0.001, "asm10": 0.01, "asm20": 0.05}
+P10_ASM_CONTIGS = (200, 20_000)
+P10_COUNTERS = ("device_reads", "staged_device_reads", "host_chain",
+                "host_chain_oversized", "host_chain_bw", "fallback",
+                "native_finish", "staged_frags", "ext_device", "ext_native")
+# The option matrix, one list for the card and for the CPU tests
+# (tests/test_torch_options.py, _options_output.py, _options_presets.py):
+# (id, options, queries). Each run makes queries of these kinds, the
+# tests at a smaller size: "r" reads of the genome, "sr" short reads of
+# it, "ovl" reads that overlap each other (mapped against themselves),
+# "asm" contigs of low divergence from the genome, "splice" the splice
+# fixtures of tests/data.
+OPTION_CASES = [
+    ("for-only", ["--for-only", "-c"], "r"),
+    ("rev-only", ["--rev-only", "-c"], "r"),
+    ("ava-X-M", ["-X", "-M", "0.3"], "ovl"),
+    ("pri-ratio-bestn", ["-p", "0.5", "-N", "10", "-c"], "ovl"),
+    ("secondary-no", ["--secondary=no", "-a"], "r"),
+    ("long-cigar-L", ["-L", "-a"], "r"),
+    ("small-bw", ["-r", "100", "-a"], "r"),
+    ("max-gap", ["-g", "1000", "-c"], "r"),
+    ("mid-occ-frac", ["-f", "0.001", "-c"], "r"),
+    # batches of about 1 kb, so that map_stream takes several (-K 20k on
+    # the reference tests' larger q-inv.fa)
+    ("tiny-K", ["-K", "1k", "-c"], "r"),
+    ("multipart-I", ["-I", "100k", "-a"], "r"),
+    ("paf", [], "r"),
+    ("paf-cigar", ["-c"], "r"),
+    ("cs", ["-c", "--cs"], "r"),
+    ("md", ["-c", "--MD"], "r"),
+    ("intron-G", ["-G", "5k", "-ax", "splice"], "splice"),
+    ("preset-ava-pb", ["-x", "ava-pb"], "ovl"),
+    ("preset-asm5", ["-x", "asm5", "-c"], "asm"),
+    ("preset-sr", ["-x", "sr", "-a"], "sr"),
+]
+
+
+def _p10_inputs():
+    """The phase's reads and contigs, cached in SMOKE_DIR."""
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    ref = G.cached_genome(*P10_GENOME)
+    tag = "g{}x{}s{}".format(*P10_GENOME)
+    path = lambda name: os.path.join(SMOKE_DIR, f"p10_{tag}_{name}.fa")
+    out = {"ref": ref}
+    n, ln, err = P10_SR
+    out["sr"] = _cached(path(f"sr{n}"),
+                        lambda p: G.simulate(ref, p, n, ln, err, seed=101))
+    n, ln, err = P10_PB
+    out["map-pb"] = _cached(path(f"pb{n}"),
+                            lambda p: G.simulate(ref, p, n, ln, err,
+                                                 seed=103))
+    region, n, ln, err = P10_AVA
+
+    def ava(p):
+        first = next(iter(read_fastx(ref)))
+        src = p + ".src"
+        with open(src, "w") as f:
+            f.write(f">{first.name}\n{first.seq[:region]}\n")
+        G.simulate(src, p, n, ln, err, seed=105)
+        os.remove(src)
+    out["ava"] = _cached(path(f"ava{n}"), ava)
+    n, ln = P10_ASM_CONTIGS
+    for i, (preset, err) in enumerate(P10_ASM.items()):
+        out[preset] = _cached(path(f"{preset}_{n}"), lambda p, e=err, s=i:
+                              G.simulate(ref, p, n, ln, e, seed=107 + s))
+    return out
+
+
+def _p10_run(label, mi, mo, batches):
+    """HostRuntime, then TorchRuntime on the card, -t THREADS, over
+    `batches`: a warm-up batch each, then the card's counters, stage
+    timers and launch counts set to 0, the timed map_stream with every
+    kernel wrapper's largest input kept (utils/kernel_inputs.py), and the
+    counts read. The lines must be equal. Returns the run's numbers and
+    the kept inputs."""
+    import torch
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    from minimap2_chaindp_tpu_torch.utils import kernel_inputs as KI
+    frags = [f for b in batches for f in b]
+    host = HostRuntime(mi, mo, n_threads=THREADS)
+    host.map_batch(frags[:16])
+    t0 = time.perf_counter()
+    want = [ls for b in host.map_stream(batches) for ls in b]
+    t_host = time.perf_counter() - t0
+    host.close()
+    rt = TorchRuntime(mi, mo, device="cuda", n_threads=THREADS)
+    rt.map_batch(frags[:16])
+    torch.cuda.synchronize()
+    for d in (rt.timers.acc, rt.timers.n, rt.timers.counters):
+        d.clear()
+    ex = rt.align_exec
+    ex.n_device = ex.n_native = ex.n_host = 0
+    _reset_launches()
+    with KI.record() as kept:
+        t0 = time.perf_counter()
+        got = [ls for b in rt.map_stream(batches) for ls in b]
+        torch.cuda.synchronize()
+        t_port = time.perf_counter() - t0
+    launches = _read_launches()
+    rt.close()
+    n_diff = sum(a != b for a, b in zip(got, want))
+    check(len(got) == len(want) == len(frags) and n_diff == 0,
+          f"phase 10 {label}: {n_diff} fragments' lines differ from "
+          "HostRuntime")
+    c = dict(rt.timers.counters)
+    n = len(frags)
+    log(f"phase 10 {label}: {sum(map(len, got))} records for {n} "
+        f"fragments, byte-identical to HostRuntime; {n / t_port:.1f} "
+        f"fragments/s on the card ({t_port:.2f} s) against HostRuntime "
+        f"{n / t_host:.1f} ({t_host:.2f} s), -t {THREADS}; "
+        + " ".join(f"{k}={c.get(k, 0)}" for k in P10_COUNTERS)
+        + f"; launches chain {launches['chain']}, ksw2 {launches['ksw']}, "
+        f"walk {launches['walk']}")
+    log(f"phase 10 {label} stages (host wall clock): {rt.timers.summary()}")
+    return dict(rate=n / t_port, host_rate=n / t_host, frags=n,
+                counters={k: c.get(k, 0) for k in P10_COUNTERS},
+                launches=launches, kept=kept)
+
+
+def _digest(obj, h=None) -> str:
+    """A hash of a kept input: tensors and arrays by dtype, shape and
+    bytes, containers by their items, anything else by repr."""
+    import hashlib
+    import torch
+    h = h or hashlib.sha256()
+    if isinstance(obj, torch.Tensor):
+        obj = obj.detach().cpu().numpy()
+    if isinstance(obj, np.ndarray):
+        h.update(f"{obj.dtype}{obj.shape}".encode())
+        h.update(np.ascontiguousarray(obj).tobytes())
+    elif isinstance(obj, dict):
+        for k in sorted(obj, key=repr):
+            h.update(repr(k).encode())
+            _digest(obj[k], h)
+    elif isinstance(obj, (list, tuple)):
+        h.update(f"{type(obj).__name__}{len(obj)}".encode())
+        for x in obj:
+            _digest(x, h)
+    else:
+        h.update(repr(obj).encode())
+    return h.hexdigest()
+
+
+def _p10_check_kept(label, kept, seen=None):
+    """Every kept input against the plain version (comparison launches,
+    not counted): the chain kernel by mode, the ksw2 forward and walk
+    kernels on the launch with the most DP cells. With `seen` (digest ->
+    (label, check)), an input already checked under another label keeps
+    that check, so that the plain versions run once an input."""
+    def once(what, inp, run):
+        if seen is None:
+            return run()
+        d = _digest(inp)
+        if d in seen:
+            log(f"phase 10 {label} {what}: the same input as "
+                f"{seen[d][0]}, whose check stands")
+        else:
+            seen[d] = (label, run())
+        return seen[d][1]
+    chain, ksw = {}, None
+    for mode, (_slots, args, kw) in sorted(kept.chain.items()):
+        chain[mode] = once(mode, (args, kw), lambda: compare_kernel(
+            f"{label} {mode} input R={args[1].shape[0]} "
+            f"max_n={kw['max_n']}", args, kw, reps=3, phase=10))
+    if kept.ksw is not None:
+        _cells, jobs, splice, noncan = kept.ksw
+
+        def run():
+            pk, ts, kw = packed_ksw_inputs(jobs, kept.scoring[splice],
+                                           splice, noncan, "cuda")
+            return compare_ksw(f"{label} input ({len(jobs)} jobs)", pk, ts,
+                               kw, reps=3, phase=10)
+        ksw = once("ksw2", (jobs, kept.scoring[splice], splice, noncan), run)
+    return chain, ksw
+
+
+def _p10_options():
+    """Each case of OPTION_CASES through the port's CLI in this process,
+    --device cuda against --device host: the lines equal apart from @PG;
+    the card's launches counted from 0 before each --device cuda run, its
+    kernel inputs kept and then held against the plain versions. Returns
+    the launches in all, each case's numbers and the checks of the kept
+    inputs by case."""
+    import contextlib
+    import io as _io
+    from minimap2_chaindp_tpu_torch import cli
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    from minimap2_chaindp_tpu_torch.utils import kernel_inputs as KI
+    g = _cached(os.path.join(SMOKE_DIR, "p10_opt_g.fa"),
+                lambda p: G.make_genome(p, n_contigs=2, contig_len=200_000,
+                                        seed=81))
+    r = _cached(os.path.join(SMOKE_DIR, "p10_opt_r1k.fa"),
+                lambda p: G.simulate(g, p, 200, 1000, 0.10, seed=85))
+    sr = _cached(os.path.join(SMOKE_DIR, "p10_opt_sr.fa"),
+                 lambda p: G.simulate(g, p, 500, 150, 0.01, seed=91))
+    asm = _cached(os.path.join(SMOKE_DIR, "p10_opt_asm.fa"),
+                  lambda p: G.simulate(g, p, 10, 20_000, 0.001, seed=89))
+
+    def ovl(p):
+        seq = next(iter(read_fastx(g))).seq
+        src = p + ".src"
+        with open(src, "w") as f:
+            f.write(f">head\n{seq[60_000:80_000]}\n")
+        G.simulate(src, p, 40, 2000, 0.05, seed=87)
+        os.remove(src)
+    o = _cached(os.path.join(SMOKE_DIR, "p10_opt_ovl.fa"), ovl)
+    spl = [os.path.join(ROOT, "tests", "data", f)
+           for f in ("splice_genome.fa", "splice_cdna.fa")]
+    files = {"r": [g, r], "sr": [g, sr], "ovl": [o, o], "asm": [g, asm],
+             "splice": spl}
+
+    def run(args):
+        out, err = _io.StringIO(), _io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(args)
+        check(rc == 0, f"phase 10 CLI {' '.join(args)} exited {rc}: "
+              f"{err.getvalue()[-2000:]}")
+        return [ln for ln in out.getvalue().split("\n")
+                if not ln.startswith("@PG")], err.getvalue()
+    tot = dict(chain=0, ksw=0, walk=0)
+    res, checks, seen = {}, {}, {}
+    for name, opts, q in OPTION_CASES:
+        host, _e = run(["--device", "host", *opts, *files[q]])
+        _reset_launches()
+        with KI.record() as kept:
+            card, err = run(["--device", "cuda", *opts, *files[q]])
+        n = _read_launches()
+        check(card == host, f"phase 10 option case {name}: the card's "
+              "lines differ from --device host")
+        check(sum(1 for ln in card if ln and ln[0] != "@") > 0,
+              f"phase 10 option case {name}: no record")
+        for k in tot:
+            tot[k] += n[k]
+        c = cli.LAST_RUN_COUNTERS
+        res[name] = dict(n, records=sum(1 for ln in card
+                                        if ln and ln[0] != "@"))
+        log(f"phase 10 option {name} ({' '.join(opts)}): "
+            f"{res[name]['records']} records, equal to --device host; "
+            f"launches chain {n['chain']}, ksw2 {n['ksw']}, walk "
+            f"{n['walk']}; " + " ".join(f"{k}={c.get(k, 0)}"
+                                        for k in P10_COUNTERS))
+        chain, ksw = checks[f"opt_{name}"] = _p10_check_kept(
+            f"option {name}", kept, seen)
+        check(bool(chain) == (n["chain"] > 0)
+              and (ksw is not None) == (n["ksw"] > 0),
+              f"phase 10 option case {name}: the kept inputs {sorted(chain)}"
+              f", ksw2 {ksw is not None} do not match the launches {n}")
+    check(tot["chain"] > 0, "phase 10: the option cases launched no chain "
+          "kernel")
+    return tot, res, checks
+
+
+def phase_presets():
+    """Phase 10: every preset and the option matrix on the card. Returns
+    the launches by path and in all, each preset's numbers and the kept
+    inputs' checks."""
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx, read_frags
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    t0 = time.perf_counter()
+    inp = _p10_inputs()
+    log(f"phase 10 inputs: {P10_GENOME[0] * P10_GENOME[1] / 1e6:.0f} Mbp "
+        f"genome; sr {P10_SR}, map-pb {P10_PB}, ava {P10_AVA}, asm "
+        f"{P10_ASM_CONTIGS} at {P10_ASM} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    indexes = {}
+
+    def index(preset, ref):
+        io, mo = set_opt(preset)
+        key = (ref, io.k, io.w, io.flag)
+        if key not in indexes:
+            t1 = time.perf_counter()
+            names, seqs = [], []
+            for r in read_fastx(ref):
+                names.append(r.name)
+                seqs.append(C.seq_to_nt4(r.seq))
+            indexes.clear()         # one index of 50 Mbp at a time
+            indexes[key] = build_index(names, seqs, io.w, io.k, io.flag,
+                                       io.bucket_bits,
+                                       n_threads=os.cpu_count() or 1)
+            log(f"phase 10 index k={io.k} w={io.w} hpc="
+                f"{int(bool(io.flag & C.MM_I_HPC))} over "
+                f"{os.path.basename(ref)}: {len(indexes[key].keys)} keys "
+                f"({time.perf_counter() - t1:.1f} s)")
+        mi = indexes[key]
+        mo.update(mi)
+        return mi, mo
+
+    runs, checks = {}, {}
+    plan = [("sr", "sr", inp["ref"], inp["sr"], 0),
+            ("map-pb", "map-pb", inp["ref"], inp["map-pb"], 0),
+            ("map10k", "map10k", inp["ref"], inp["map-pb"],
+             P10_MAP10K_READS),
+            ("ava-ont", "ava-ont", inp["ava"], inp["ava"], 0),
+            ("ava-pb", "ava-pb", inp["ava"], inp["ava"], 0),
+            ("ava-pb -c", "ava-pb", inp["ava"], inp["ava"], P10_AVA_C_READS)]
+    plan += [(p, p, inp["ref"], inp[p], 0) for p in P10_ASM]
+    for label, preset, ref, qry, cut in plan:
+        mi, mo = index(preset, ref)
+        if preset.startswith("ava"):
+            # PAF as the ava users run it; the cut with -c (cg:Z:)
+            if cut:
+                mo.flag |= C.MM_F_OUT_CG | C.MM_F_CIGAR
+        else:
+            mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR        # -a
+        batches = list(read_frags([qry], mo.mini_batch_size, False))
+        if cut:
+            batches = [[f for b in batches for f in b][:cut]]
+        runs[label] = _p10_run(label, mi, mo, batches)
+        checks[label] = _p10_check_kept(label, runs[label].pop("kept"))
+    indexes.clear()
+    for label in ("sr", "map-pb", "ava-ont", "ava-pb"):
+        check(runs[label]["launches"]["chain"] > 0,
+              f"phase 10 {label}: the chain kernel never launched")
+    for label in P10_ASM:
+        n = runs[label]["launches"]
+        check(n["ksw"] > 0 and n["walk"] > 0,
+              f"phase 10 {label}: the ksw2 kernels never launched")
+    check(runs["ava-pb -c"]["launches"]["ksw"] > 0,
+          "phase 10 ava-pb -c: the ksw2 kernels never launched")
+    t1 = time.perf_counter()
+    opt_launches, opt_res, opt_checks = _p10_options()
+    checks.update(opt_checks)
+    log(f"phase 10 option cases: {len(opt_res)} equal to --device host "
+        f"({time.perf_counter() - t1:.1f} s); launches {opt_launches}")
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                + opt_launches[k] for k in opt_launches}
+    secs = time.perf_counter() - t0
+    log(f"phase 10 done in {secs:.1f} s; launches by path "
+        + ", ".join(f"{k} {r['launches']}" for k, r in runs.items())
+        + f", options {opt_launches}; {launches} in all")
+    return dict(launches=launches, runs=runs, checks=checks,
+                options=opt_res, secs=secs)
+
+
 def _chain_fields(tag, res):
     """compare_kernel's numbers under the names of one more input."""
     return {f"ms_{tag}": res["ms"], f"plain_ms_{tag}": res["plain_ms"],
@@ -1711,6 +2138,7 @@ def main() -> int:
         phase_lanes(e2e, spl, pe)
         rest = phase_rest(e2e)
         bench9 = phase_bench()
+        p10 = phase_presets()
     except Exception:
         traceback.print_exc()
         print("[smoke] FAILED", file=sys.stderr)
@@ -1718,15 +2146,22 @@ def main() -> int:
     log(f"done in {time.perf_counter() - t_all:.1f} s on {card}; "
         f"build {build_s:.2f} s")
     err = max(worst, spl["err"], pe["err"])
+    n10 = p10["launches"]
+    chain10 = {f"{label}_{mode}": r for label, (ch, _k) in
+               p10["checks"].items() for mode, r in ch.items()}
+    ksw10 = {label: k for label, (_ch, k) in p10["checks"].items()
+             if k is not None}
     print(json.dumps({"kernels": [
         {"name": "chain_dp", "route": "cuda", "source": CHAIN_SOURCE,
          "replaces": CHAIN_REPLACES,
          "launches": e2e["launches"] + spl["chain"] + pe["chain"]
-         + rest["launches"] + bench9["launches"]["chain"],
+         + rest["launches"] + bench9["launches"]["chain"] + n10["chain"],
          "launches_phase9": bench9["launches"]["chain"],
+         "launches_phase10": n10["chain"],
          "max_abs_err": max(worst, e2e["err"], spl["chain_err"],
                             pe["chain_err"], rest["meshes"]["res"]["err"],
-                            *(r["err"] for r in bench9["chain"].values())),
+                            *(r["err"] for r in bench9["chain"].values()),
+                            *(r["err"] for r in chain10.values())),
          "ms": e2e["ms"],
          "plain_ms": e2e["plain_ms"], "bound_ms": e2e["bound_ms"],
          "bound_by": e2e["bound_by"], "library_ms": None,
@@ -1744,13 +2179,19 @@ def main() -> int:
          "checks_phase9": {
              k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "form", "anchors")}
-             for k, r in bench9["chain"].items()}},
+             for k, r in bench9["chain"].items()},
+         "checks_phase10": {
+             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "form", "anchors")}
+             for k, r in chain10.items()}},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,
          "replaces": KSW_REPLACES,
-         "launches": spl["ksw"] + pe["ksw"] + bench9["launches"]["ksw"],
+         "launches": spl["ksw"] + pe["ksw"] + bench9["launches"]["ksw"]
+         + n10["ksw"],
          "launches_phase9": bench9["launches"]["ksw"],
-         "max_abs_err": max(err, *(r["err"]
-                                   for r in bench9["ksw"].values())),
+         "launches_phase10": n10["ksw"],
+         "max_abs_err": max(err, *(r["err"] for r in [
+             *bench9["ksw"].values(), *ksw10.values()])),
          "ms": spl["ms"], "plain_ms": spl["plain_ms"],
          "bound_ms": spl["bound_ms"], "bound_by": spl["bound_by"],
          "library_ms": None, "step_ns": spl["step_ns"],
@@ -1764,13 +2205,19 @@ def main() -> int:
          "checks_phase9": {
              k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
                                    "bound_by")}
-             for k, r in bench9["ksw"].items()}},
+             for k, r in bench9["ksw"].items()},
+         "checks_phase10": {
+             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by")}
+             for k, r in ksw10.items()}},
         {"name": "ksw2_walk", "route": "cuda", "source": KSW_SOURCE,
          "replaces": WALK_REPLACES,
-         "launches": spl["walk"] + pe["walk"] + bench9["launches"]["walk"],
+         "launches": spl["walk"] + pe["walk"] + bench9["launches"]["walk"]
+         + n10["walk"],
          "launches_phase9": bench9["launches"]["walk"],
-         "max_abs_err": max(err, *(r["err"]
-                                   for r in bench9["ksw"].values())),
+         "launches_phase10": n10["walk"],
+         "max_abs_err": max(err, *(r["err"] for r in [
+             *bench9["ksw"].values(), *ksw10.values()])),
          "ms": spl["walk_ms"],
          "plain_ms": spl["walk_plain_ms"],
          "bound_ms": spl["walk_bound_ms"],
@@ -1782,7 +2229,12 @@ def main() -> int:
                                "plain_ms": r["walk_plain_ms"],
                                "bound_ms": r["walk_bound_ms"],
                                "bound_by": r["walk_bound_by"]}
-                           for k, r in bench9["ksw"].items()}}]}))
+                           for k, r in bench9["ksw"].items()},
+         "checks_phase10": {k: {"err": r["err"], "ms": r["walk_ms"],
+                                "plain_ms": r["walk_plain_ms"],
+                                "bound_ms": r["walk_bound_ms"],
+                                "bound_by": r["walk_bound_by"]}
+                            for k, r in ksw10.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

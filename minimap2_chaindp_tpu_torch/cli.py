@@ -606,8 +606,8 @@ def _main(argv=None) -> int:
             b = stash.popleft()
             mlog.mlog("worker_pipeline",
                       f"mapped {sum(len(f.segs) for f in b)} sequences")
+        runtime.close()
         if hasattr(runtime, "describe"):
-            runtime.close()
             print(f"[timers] {runtime.describe()} "
                   f"{runtime.timers.summary()}", file=sys.stderr)
         else:

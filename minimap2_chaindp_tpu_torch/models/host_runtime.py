@@ -44,6 +44,12 @@ class HostRuntime:
                 max_workers=max(1, self.n_threads - 1),
                 thread_name_prefix="mm2tpu-worker")
 
+    def close(self) -> None:
+        """Stop the -t worker pool."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
     def map_stream(self, batches, rg_id: str = ""):
         """2-deep threaded pipeline over read batches (kt_pipeline step
         overlap, map.c:637): native batch calls release the GIL, so batch

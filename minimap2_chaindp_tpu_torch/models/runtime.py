@@ -456,7 +456,10 @@ class TorchRuntime:
         bounds, many_segs): port of models/runtime.py:1093-1195. `pending`
         is a list of (segs, UnitInfo); `precomputed` carries Chains the
         fused flow already made. Units of at most `native_chain_max`
-        anchors chain on the host (counter host_chain)."""
+        anchors chain on the host (counter host_chain), and so do units
+        with more anchors than the last bucket (host_chain_oversized) and,
+        of the others, those whose gap-cost domain reaches the table's end
+        (host_chain_bw), as in the JAX package (:1116-1121)."""
         from ..native import chain_bottom_native
         opt = self.opt
         is_cdna = bool(opt.flag & C.MM_F_SPLICE)
@@ -480,6 +483,8 @@ class TorchRuntime:
             clin_dom = info.gap_qry if is_cdna else opt.bw
             if b is None or clin_dom >= CP.TBL:
                 host_idx.append(k)
+                self.timers.count("host_chain_oversized" if b is None
+                                  else "host_chain_bw")
             elif n <= self.native_chain_max:
                 host_idx.append(k)
                 self.timers.count("host_chain")

@@ -64,8 +64,9 @@ def main(argv=None) -> int:
     del recs
     mo.update(mi)
     n = sum(len(b) for b in batches)
-    want = [ls for b in HostRuntime(mi, mo, n_threads=3).map_stream(batches)
-            for ls in b]
+    host = HostRuntime(mi, mo, n_threads=3)
+    want = [ls for b in host.map_stream(batches) for ls in b]
+    host.close()
     if cuda:
         log(f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
     out = {"reads": n, "mbp": args.mbp, "runs": {}}

@@ -8,7 +8,9 @@ library, and TorchRuntime on cuda against the port's HostRuntime
 (byte-identical lines) under map-ont and -x splice, and under the stealing
 routing from map_stream's two batch threads; the device index build,
 entry(), a 1 x 1 nccl mesh, and meshes of two ranks on one card over gloo
-(1 x 2, 2 x 1). Skips without a CUDA device. This file imports neither JAX nor the JAX package, so on a GPU
+(1 x 2, 2 x 1); the regimes of the presets: the chain launches of
+-x ava-pb (bw 2000) and extension jobs of several kb under the asm10 and
+asm20 scorings, each against the plain version. Skips without a CUDA device. This file imports neither JAX nor the JAX package, so on a GPU
 host without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -420,3 +422,74 @@ def test_mesh_gloo_two_ranks_one_card(cuda, tmp_path, shape):
     assert c["device_reads"] > 0 and c["mesh_bytes"] > 0
     if shape == (1, 2):
         assert c["mesh_allgather_bytes"] > 0
+
+
+def test_ava_pb_chain_inputs_on_card(cuda, tmp_path):
+    """-x ava-pb: reads mapped against themselves (HPC k19 w5, PAF), every
+    unit staged (NO_DIAG); each chain launch the runtime made (bw 2000, the
+    widest below the table's 2048; max_dist 10000) against the plain
+    version, in every form; the lines equal HostRuntime's."""
+    from chip_smoke import compare_kernel
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx, read_frags
+    from minimap2_chaindp_tpu_torch.models import runtime as RT
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    src, reads = str(tmp_path / "src.fa"), str(tmp_path / "ava.fa")
+    G.make_genome(src, n_contigs=1, contig_len=40_000, seed=63)
+    G.simulate(src, reads, 48, 5000, 0.10, seed=69)
+    io, mo = set_opt("ava-pb")
+    recs = list(read_fastx(reads))
+    mi = build_index([r.name for r in recs], [r.seq for r in recs],
+                     io.w, io.k, io.flag, io.bucket_bits)
+    mo.update(mi)
+    frags = [f for b in read_frags([reads], mo.mini_batch_size, False)
+             for f in b]
+    want = HostRuntime(mi, mo).map_batch(frags)
+    kept = []
+    real = RT.chain_scores_batch
+    RT.chain_scores_batch = lambda *a, **kw: (kept.append((a, kw))
+                                              or real(*a, **kw))
+    try:
+        rt = RT.TorchRuntime(mi, mo, device=cuda)
+        got = rt.map_batch(frags)
+    finally:
+        RT.chain_scores_batch = real
+    assert got == want
+    assert kept and rt.timers.counters["staged_device_reads"] > 0
+    for a, kw in kept:
+        assert kw["bw"] == 2000 and kw["max_dist_x"] == 10000
+        res = compare_kernel(f"ava-pb R={a[1].shape[0]} max_n="
+                             f"{kw['max_n']}", a, kw, reps=1, phase=0)
+        assert res["err"] == 0
+
+
+@pytest.mark.parametrize("preset", ["asm10", "asm20"])
+def test_asm_ksw_jobs_on_card(cuda, preset):
+    """Eight extension jobs of 2-6 kb under the asm10 and asm20 scorings
+    and z-drop 200, the query diverged at the preset's rate in smoke phase
+    10 (1%, 5%), band 751 as the asm runs set it; global, right-aligned
+    and reversed-CIGAR jobs in turn. The forward kernel (as planned and
+    every variant forced) and the walk against their plain versions, bit
+    for bit."""
+    import numpy as np
+    from chip_smoke import P10_ASM, _mutate_codes, compare_ksw, ksw_inputs
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    _, o = set_opt(preset)
+    div = P10_ASM[preset]
+    rng = np.random.default_rng(13)
+    flags = (0, K.KSW_EZ_EXTZ_ONLY | K.KSW_EZ_RIGHT,
+             K.KSW_EZ_EXTZ_ONLY | K.KSW_EZ_RIGHT | K.KSW_EZ_REV_CIGAR)
+    jobs = []
+    for i in range(8):
+        t = rng.integers(0, 4, int(rng.integers(2000, 6001))).astype(
+            np.uint8)
+        jobs.append(dict(qseq=_mutate_codes(rng, t, div * 0.55, div * 0.45),
+                         tseq=t, w=751, zdrop=o.zdrop, end_bonus=-1,
+                         flag=flags[i % len(flags)]))
+    assert o.zdrop == 200
+    pk, ts, kw = ksw_inputs(jobs, (o.q, o.e, o.q2, o.e2, o.a, o.b), False,
+                            cuda)
+    assert compare_ksw(f"{preset} 2-6 kb", pk, ts, kw, reps=1)["err"] == 0
