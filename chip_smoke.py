@@ -72,17 +72,39 @@ Phases, each printing its own lines:
      each case's largest kernel inputs held against the plain versions
      too. The chain kernel must launch on the sr, map-pb and ava paths,
      the ksw2 kernels on the asm paths.
+ 11. the main path at genome scale: a 1 Gbp genome (P11_GENOME, 500 x 2
+     Mbp, cut from a human genome's 3 Gbp for the time limit; made with
+     its reads in a process of its own while phases 1-10 run, cached in
+     build/smoke/), its index built with the minimizer pair sort on the
+     card (build_index(device="cuda")), 1000 x 10 kb reads at 10%
+     (P11_READS) in batches of
+     LANE_BATCH_READS: HostRuntime, then TorchRuntime under the device
+     routing (warmed by one batch) and under steal (cold: the index
+     tables dropped from the cache, so that its flow uploads them on a
+     thread of its own during the first batch), each byte-identical to
+     HostRuntime; the seconds of the genome, the build and the upload,
+     DeviceIndex.nbytes(), the card's peak memory, the anchors a read and
+     their capacity buckets, the counters (the chain kernel's share,
+     host_chain_oversized, fallback, steal_join_ms) and each run's
+     largest kernel inputs held against the plain versions, the largest
+     chain input's time and bound printed; the tables are freed before
+     the phase ends.
+`phase7_turns(parent)` is not run by main(): it holds the stealing
+lane's repairs against another checkout of the repo (phase 7's steal runs
+on phase 4's reads and phase 6's pairs, cold and warm, parent and this
+tree in turns; PERF.md §5).
 In phases 5 and 6 the chain kernel (on the largest input of each of its
 modes) and the ksw2 kernels (on the largest launch) are checked and timed
 again on the inputs the path gave them.
 Each of phases 4-6, each run of phase 7, each path of phase 8 (entry(),
 each timed run of the two meshes, the dry run) and each run and option
-case of phase 10 sets the launch counters to 0 just before its run and
-reads them just after; the kernels line counts phases 4, 5, 6, 8, 9 and 10
-(phase 9's processes start from 0 and report their counts in the bench's
-record), with phase 9's and phase 10's also apart (launches_phase9,
-launches_phase10) beside the checks of their kept inputs (in
-checks_phase10 the option cases' as opt_<case>). A mesh's other ranks
+case of phase 10 and each run of phase 11 sets the launch counters to 0
+just before its run and reads them just after; the kernels line counts
+phases 4, 5, 6, 8, 9, 10 and 11 (phase 9's processes start from 0 and
+report their counts in the bench's record), with phase 9's, 10's and 11's
+also apart (launches_phase9, launches_phase10, launches_phase11) beside
+the checks of their kept inputs (in checks_phase10 the option cases' as
+opt_<case>; checks_phase11 by routing and mode). A mesh's other ranks
 are processes of their own, but in a 1 x I mesh rank 0 runs every chain (the index-0
 rank of a data row chains it, models/device_pipeline.py).
 The second-to-last line is the kernels' JSON record, the last line
@@ -1210,9 +1232,9 @@ def phase_paired(ref):
 
 # ---------------------------------------------------------------- phase 7
 LANE_COUNTERS = ("steal_device_reads", "steal_chunks", "steal_paused",
-                 "steal_dev_fallback", "fast_native", "native_finish",
-                 "staged_frags", "host_chain", "device_seed", "host_seed",
-                 "ext_device", "ext_native")
+                 "steal_dev_fallback", "steal_join_ms", "fast_native",
+                 "native_finish", "staged_frags", "host_chain",
+                 "device_seed", "host_seed", "ext_device", "ext_native")
 
 
 def _lane_run(label, mi, mo, batches, host_lines, t_host, **kw):
@@ -1917,7 +1939,7 @@ def _digest(obj, h=None) -> str:
     return h.hexdigest()
 
 
-def _p10_check_kept(label, kept, seen=None):
+def _p10_check_kept(label, kept, seen=None, phase=10):
     """Every kept input against the plain version (comparison launches,
     not counted): the chain kernel by mode, the ksw2 forward and walk
     kernels on the launch with the most DP cells. With `seen` (digest ->
@@ -1928,7 +1950,7 @@ def _p10_check_kept(label, kept, seen=None):
             return run()
         d = _digest(inp)
         if d in seen:
-            log(f"phase 10 {label} {what}: the same input as "
+            log(f"phase {phase} {label} {what}: the same input as "
                 f"{seen[d][0]}, whose check stands")
         else:
             seen[d] = (label, run())
@@ -1937,7 +1959,7 @@ def _p10_check_kept(label, kept, seen=None):
     for mode, (_slots, args, kw) in sorted(kept.chain.items()):
         chain[mode] = once(mode, (args, kw), lambda: compare_kernel(
             f"{label} {mode} input R={args[1].shape[0]} "
-            f"max_n={kw['max_n']}", args, kw, reps=3, phase=10))
+            f"max_n={kw['max_n']}", args, kw, reps=3, phase=phase))
     if kept.ksw is not None:
         _cells, jobs, splice, noncan = kept.ksw
 
@@ -1945,7 +1967,7 @@ def _p10_check_kept(label, kept, seen=None):
             pk, ts, kw = packed_ksw_inputs(jobs, kept.scoring[splice],
                                            splice, noncan, "cuda")
             return compare_ksw(f"{label} input ({len(jobs)} jobs)", pk, ts,
-                               kw, reps=3, phase=10)
+                               kw, reps=3, phase=phase)
         ksw = once("ksw2", (jobs, kept.scoring[splice], splice, noncan), run)
     return chain, ksw
 
@@ -2111,6 +2133,361 @@ def phase_presets():
                 options=opt_res, secs=secs)
 
 
+# ---------------------------------------------------------------- phase 11
+# the main path at genome scale: 2 Mbp contigs (make_genome, seed 42,
+# cached in SMOKE_DIR like phase 4's) indexed under map-ont with the
+# minimizer pair sort on the card, and phase 4's workload (1000 x 10 kb
+# reads at 10%, seed 5) in batches of LANE_BATCH_READS under the device
+# and steal routings. Cut from a human genome's 3 Gbp (GENOME_3G, 1500
+# contigs) to 1 Gbp: at 3 Gbp the phase took 170.8 s and the smoke 1095.6
+# s of its 1200 (PERF.md §4); tools/genome_scale.py --mb 3000 and
+# phase7_turns run the 3 Gbp genome. Its inputs are made in a process of
+# their own while phases 1-10 run (_p11_start)
+GENOME_3G = (1500, 2_000_000, 42)             # contigs, length, seed
+P11_GENOME = (500, 2_000_000, 42)
+P11_READS = (1000, 10_000, 0.10, 5)           # reads, length, error, seed
+P11_COUNTERS = ("device_reads", "staged_device_reads", "staged_frags",
+                "native_finish", "fallback", "host_chain_oversized",
+                "host_chain_bw", "ext_device", "steal_device_reads",
+                "steal_chunks", "steal_cold_chunks", "steal_join_ms",
+                "steal_dev_fallback", "fast_native")
+
+
+def _p11_inputs(genome=None, report=False):
+    """The genome `genome` (default P11_GENOME) and phase 11's reads of
+    it, cached in SMOKE_DIR: (genome path, reads path, seconds to make
+    each); with `report` a line with the seconds."""
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    n_ctg, ctg_len, seed = genome or P11_GENOME
+    n_reads, read_len, err, rseed = P11_READS
+    t0 = time.perf_counter()
+    ref = _cached(os.path.join(
+        SMOKE_DIR, f"genome_{n_ctg}x{ctg_len}_s{seed}.fa"),
+        lambda p: G.make_genome(p, n_contigs=n_ctg, contig_len=ctg_len,
+                                seed=seed))
+    t1 = time.perf_counter()
+    reads = _cached(os.path.join(
+        SMOKE_DIR, f"p11_reads_{n_ctg}x{ctg_len}_{n_reads}x{read_len}"
+        f"_s{rseed}.fa"),
+        lambda p: G.simulate(ref, p, n_reads, read_len, err, seed=rseed))
+    t2 = time.perf_counter()
+    if report:
+        log(f"phase 11 inputs made: {n_ctg * ctg_len / 1e6:.0f} Mbp genome "
+            f"{t1 - t0:.1f} s, {n_reads} reads {t2 - t1:.1f} s")
+    return ref, reads, t1 - t0, t2 - t1
+
+
+def _p11_start():
+    """Start making phase 11's inputs in a process of its own (spawn),
+    to overlap phases 1-10; phase_genome joins it, main() stops it."""
+    import multiprocessing as mp
+    p = mp.get_context("spawn").Process(
+        target=_p11_inputs, kwargs=dict(report=True), name="smoke-p11")
+    p.start()
+    return p
+
+
+def _p11_index(ref):
+    """The map-ont index of `ref` with the pair sort on the card, at -t of
+    every core: (index, FASTA read seconds, build seconds)."""
+    import torch
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    io, _mo = set_opt("map-ont")
+    t0 = time.perf_counter()
+    names, seqs = [], []
+    for r in read_fastx(ref):
+        names.append(r.name)
+        seqs.append(C.seq_to_nt4(r.seq))
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mi = build_index(names, seqs, io.w, io.k, io.flag, io.bucket_bits,
+                     n_threads=os.cpu_count() or 1, device="cuda")
+    torch.cuda.synchronize()
+    return mi, t_read, time.perf_counter() - t0
+
+
+def phase_genome(inputs=None):
+    """Phase 11: the genome of P11_GENOME and its index built on the card,
+    HostRuntime and then TorchRuntime under the device routing (warmed by
+    one batch) and under steal (cold: its index tables dropped from the
+    cache first, so that its first batch runs while its flow uploads them
+    on a thread of its own), each byte-identical to HostRuntime, each
+    run's launches counted from 0 and its largest kernel inputs held
+    against the plain versions. Frees the tables before it returns.
+    `inputs` is the process of _p11_start, joined first."""
+    import copy
+    import gc
+    import resource
+    import torch
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.io.fastx import read_frags
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    from minimap2_chaindp_tpu_torch.ops import seeds_device as SD
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.tools.genome_scale import anchor_stats
+    from minimap2_chaindp_tpu_torch.utils import kernel_inputs as KI
+    t_phase = time.perf_counter()
+    n_ctg, ctg_len, _seed = P11_GENOME
+    n_reads, read_len, err, _rseed = P11_READS
+    mbp = n_ctg * ctg_len / 1e6
+    rss_gb = lambda: resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2**20
+    t0 = time.perf_counter()
+    if inputs is not None:
+        inputs.join()
+        check(inputs.exitcode == 0, "phase 11: making the inputs failed "
+              f"(exit code {inputs.exitcode})")
+    ref, reads = _p11_inputs()[:2]
+    log(f"phase 11 inputs: {mbp:.0f} Mbp genome ({n_ctg} x {ctg_len} bp), "
+        f"{n_reads} x {read_len} bp reads at {err:.0%} error "
+        f"({time.perf_counter() - t0:.1f} s in this phase)")
+
+    io, mo = set_opt("map-ont")
+    mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR          # -a
+    torch.cuda.reset_peak_memory_stats()
+    mi, t_read, t_build = _p11_index(ref)
+    build_peak = torch.cuda.max_memory_allocated()
+    mo.update(mi)
+    occ = np.diff(mi.starts)
+    log(f"phase 11 index: {len(mi.keys)} keys, {len(mi.values)} positions "
+        f"(occurrences mean {occ.mean():.2f}, p99 "
+        f"{int(np.percentile(occ, 99))}, max {int(occ.max())}), mid_occ "
+        f"{mo.mid_occ}; FASTA read {t_read:.1f} s, build with the pair sort "
+        f"on the card {t_build:.1f} s (-t {os.cpu_count()}), its "
+        f"max_memory_allocated {build_peak} B; peak RSS so far "
+        f"{rss_gb():.1f} GiB")
+    del occ
+
+    mo = copy.copy(mo)
+    mo.mini_batch_size = LANE_BATCH_READS * read_len
+    batches = list(read_frags([reads], mo.mini_batch_size, False))
+    frags = [f for b in batches for f in b]
+    n = len(frags)
+    t0 = time.perf_counter()
+    st = anchor_stats(mi, mo, frags)
+    log(f"phase 11 anchors a read: mean {st['mean']:.1f}, p99 {st['p99']}, "
+        f"max {st['max']} over {st['reads']} reads; capacity buckets "
+        f"{st['buckets']} ({time.perf_counter() - t0:.1f} s)")
+
+    host = HostRuntime(mi, mo, n_threads=THREADS)
+    host.map_batch(frags[:16])
+    t0 = time.perf_counter()
+    want = [ls for b in host.map_stream(batches) for ls in b]
+    t_host = time.perf_counter() - t0
+    host.close()
+
+    t0 = time.perf_counter()
+    dx = SD.device_index_cached(mi, "cuda")
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    nbytes = dx.nbytes()
+    del dx
+    log(f"phase 11 upload: DeviceIndex {nbytes} B in {t_up:.2f} s")
+
+    runs, checks, seen = {}, {}, {}
+    for routing in ("device", "steal"):
+        if routing == "steal":
+            SD.release_device_index(mi, "cuda")
+            gc.collect()
+            torch.cuda.empty_cache()
+        rt = TorchRuntime(mi, mo, device="cuda", n_threads=THREADS,
+                          routing=routing)
+        if routing == "device":
+            rt.map_batch(frags[:16])
+            torch.cuda.synchronize()
+            for d in (rt.timers.acc, rt.timers.n, rt.timers.counters):
+                d.clear()
+            rt.align_exec.n_device = rt.align_exec.n_native = 0
+            rt.align_exec.n_host = 0
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        with KI.record() as kept:
+            t0 = time.perf_counter()
+            got = [ls for b in rt.map_stream(batches) for ls in b]
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        rt.close()
+        n_diff = sum(a != b for a, b in zip(got, want))
+        check(len(got) == len(want) == n and n_diff == 0,
+              f"phase 11 {routing}: {n_diff} reads' SAM lines differ from "
+              "HostRuntime")
+        c = {k: rt.timers.counters.get(k, 0) for k in P11_COUNTERS}
+        share = (c["device_reads"] + c["staged_device_reads"]) / n
+        log(f"phase 11 {routing}: {sum(map(len, got))} records for {n} "
+            f"reads, byte-identical to HostRuntime; {n / dt:.1f} reads/s "
+            f"({dt:.2f} s) against HostRuntime {n / t_host:.1f} "
+            f"({t_host:.2f} s), -t {THREADS}; chain device share "
+            f"{share:.1%}; " + " ".join(f"{k}={v}" for k, v in c.items())
+            + f"; launches chain {launches['chain']}, ksw2 "
+            f"{launches['ksw']}, walk {launches['walk']}; "
+            f"max_memory_allocated {peak} B")
+        log(f"phase 11 {routing} stages (host wall clock): "
+            f"{rt.timers.summary()}")
+        runs[routing] = dict(rate=n / dt, host_rate=n / t_host,
+                             counters=c, share=share, launches=launches,
+                             peak=peak)
+        checks[routing] = _p10_check_kept(routing, kept, seen, phase=11)
+        del rt, kept
+    check(runs["device"]["launches"]["chain"] > 0,
+          "phase 11: the device routing launched no chain kernel")
+    # the largest chain input of the phase: its time and bound
+    big = max((r for ch, _k in checks.values() for r in ch.values()),
+              key=lambda r: r["anchors"])
+    log(f"phase 11 largest chain input: {big['anchors']} anchors, kernel "
+        f"{big['ms']:.3f} ms ({big['form']}), bound {big['bound_ms']:.4f} "
+        f"ms by {big['bound_by']}, share {big['bound_ms'] / big['ms']:.1%}, "
+        f"{big['step_ns']:.1f} ns per anchor of the longest read")
+
+    SD.release_device_index(mi, "cuda")
+    del mi, frags, batches, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("chain", "ksw", "walk")}
+    secs = time.perf_counter() - t_phase
+    log(f"phase 11 done in {secs:.1f} s; launches {launches}; the "
+        f"{mbp:.0f} Mbp tables freed (memory_allocated "
+        f"{torch.cuda.memory_allocated()} B); peak RSS {rss_gb():.1f} GiB")
+    return dict(launches=launches, runs=runs, checks=checks, big=big,
+                secs=secs, anchors=st, build_s=t_build, upload_s=t_up,
+                nbytes=nbytes)
+
+
+def phase7_turns(parent: str):
+    """Phase 7's stealing runs on phase 4's reads and phase 6's pairs, and
+    on phase 11's reads against its 3 Gbp index, in this tree and in
+    `parent` (another checkout of the repo) in turns: parent, this, this,
+    parent, each in a process of its own started in that tree's root. A
+    turn maps each input with HostRuntime, then under the steal routing
+    cold (the index tables dropped from the device cache, no warm-up: the
+    flow is built during the first batch) and warm (one warm-up batch, as
+    phase 7 does), each byte-identical to HostRuntime, and times the
+    batches' waits in the device lane's join from outside the runtime
+    (Thread.join of the lane's thread), so that both trees are measured
+    alike. The 3 Gbp index is built here once and dumped (.mm2i, cached in
+    SMOKE_DIR); each turn maps it by mmap. Returns the turns' records."""
+    from minimap2_chaindp_tpu_torch.index.serialize import dump_index
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    ref = _cached(os.path.join(
+        SMOKE_DIR, f"genome_{CONTIGS}x{CONTIG_LEN}_s42.fa"),
+        lambda p: G.make_genome(p, n_contigs=CONTIGS,
+                                contig_len=CONTIG_LEN, seed=42))
+    reads = _cached(os.path.join(
+        SMOKE_DIR, f"reads_{READS}x{READ_LEN}_s5.fa"),
+        lambda p: G.simulate(ref, p, READS, READ_LEN, 0.10, seed=5))
+    r1 = os.path.join(SMOKE_DIR, f"pairs_{PAIRS}_s11_1.fa")
+    r2 = os.path.join(SMOKE_DIR, f"pairs_{PAIRS}_s11_2.fa")
+    _cached(r1, lambda p, q: _write_pairs(ref, p, q), r2)
+    ref3, reads3, _t, _t = _p11_inputs(GENOME_3G)
+    mmi3 = _cached(ref3[:-len(".fa")] + ".mm2i",
+                   lambda p: dump_index(_p11_index(ref3)[0], p))
+    arg = json.dumps(dict(ref=ref, reads=reads, pairs=[r1, r2],
+                          mmi3=mmi3, reads3=reads3,
+                          batch=LANE_BATCH_READS * READ_LEN,
+                          batch3=LANE_BATCH_READS * P11_READS[1],
+                          threads=THREADS))
+    turns = []
+    for who, root in (("parent", parent), ("change", ROOT),
+                      ("change", ROOT), ("parent", parent)):
+        p = subprocess.run([sys.executable, "-c", _TURN, arg],
+                           cwd=os.path.abspath(root), capture_output=True,
+                           text=True, timeout=1200)
+        check(p.returncode == 0, f"phase 7 turn in {root} failed: "
+              f"{p.stderr[-3000:]}")
+        rec = json.loads(p.stdout.strip().splitlines()[-1])
+        for label, r in rec.items():
+            log(f"phase 7 turns {who} {label}: {r['rate']:.1f} fragments/s "
+                f"({r['seconds']:.2f} s); join waits {r['join_ms']:.1f} ms "
+                f"over {r['joins']} batches; " + " ".join(
+                    f"{k}={v}" for k, v in sorted(r["counters"].items())))
+        turns.append(dict(who=who, runs=rec))
+    print(json.dumps({"phase7_turns": turns}), flush=True)
+    return turns
+
+
+# one turn of phase7_turns, run with the tree's root as the working
+# directory; only what both trees have is used
+_TURN = r'''
+import json, os, sys, threading, time
+sys.path.insert(0, os.getcwd())
+import torch
+from minimap2_chaindp_tpu_torch import constants as C
+from minimap2_chaindp_tpu_torch.index.build import build_index
+from minimap2_chaindp_tpu_torch.index.serialize import load_index
+from minimap2_chaindp_tpu_torch.io.fastx import read_fastx, read_frags
+from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+from minimap2_chaindp_tpu_torch.ops import seeds_device as SD
+from minimap2_chaindp_tpu_torch.options import set_opt
+a = json.loads(sys.argv[1])
+joins = []
+real_join = threading.Thread.join
+def join(self, *args, **kw):
+    t0 = time.perf_counter()
+    try:
+        return real_join(self, *args, **kw)
+    finally:
+        if self.name == "mm2tpu-steal":
+            joins.append((time.perf_counter() - t0) * 1e3)
+threading.Thread.join = join
+out = {}
+for label, preset, qs, pe, batch in (
+        ("reads", "map-ont", [a["reads"]], False, a["batch"]),
+        ("pairs", "sr", a["pairs"], True, None),
+        ("reads 3 Gbp", "map-ont", [a["reads3"]], False, a["batch3"])):
+    io, mo = set_opt(preset)
+    mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+    if label.endswith("Gbp"):
+        mi = load_index(a["mmi3"], mmap=True)
+    else:
+        recs = list(read_fastx(a["ref"]))
+        mi = build_index([r.name for r in recs],
+                         [C.seq_to_nt4(r.seq) for r in recs], io.w, io.k,
+                         io.flag, io.bucket_bits,
+                         n_threads=os.cpu_count() or 1)
+        del recs
+    mo.update(mi)
+    if batch:
+        mo.mini_batch_size = batch
+    batches = list(read_frags(qs, mo.mini_batch_size, pe))
+    frags = [f for b in batches for f in b]
+    host = HostRuntime(mi, mo, n_threads=a["threads"])
+    want = [ls for b in host.map_stream(batches) for ls in b]
+    host.close()
+    for cond in ("cold", "warm"):
+        SD._DEVICE_INDEX_CACHE.clear()
+        torch.cuda.empty_cache()
+        rt = TorchRuntime(mi, mo, device="cuda", n_threads=a["threads"],
+                          routing="steal")
+        if cond == "warm":
+            rt.map_batch(frags[:16])
+            torch.cuda.synchronize()
+            rt.timers.counters.clear()
+        del joins[:]
+        t0 = time.perf_counter()
+        got = [ls for b in rt.map_stream(batches) for ls in b]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rt.close()
+        if got != want:
+            raise SystemExit(f"{label} {cond}: lines differ from HostRuntime")
+        c = {k: v for k, v in rt.timers.counters.items()
+             if k.startswith("steal_") and not k.startswith("steal_cpu_")}
+        out[f"{label} {cond}"] = dict(rate=len(frags) / dt, seconds=dt,
+                                      join_ms=sum(joins), joins=len(joins),
+                                      counters=c)
+        del rt
+    del mi
+print(json.dumps(out))
+'''
+
+
 def _chain_fields(tag, res):
     """compare_kernel's numbers under the names of one more input."""
     return {f"ms_{tag}": res["ms"], f"plain_ms_{tag}": res["plain_ms"],
@@ -2128,7 +2505,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     t_all = time.perf_counter()
+    p11_inputs = None
     try:
+        p11_inputs = _p11_start()
         card = phase_env()
         build_s = phase_build()
         worst, bench = phase_kernels()
@@ -2139,10 +2518,15 @@ def main() -> int:
         rest = phase_rest(e2e)
         bench9 = phase_bench()
         p10 = phase_presets()
+        p11 = phase_genome(p11_inputs)
     except Exception:
         traceback.print_exc()
         print("[smoke] FAILED", file=sys.stderr)
         return 1
+    finally:
+        if p11_inputs is not None and p11_inputs.is_alive():
+            p11_inputs.terminate()
+            p11_inputs.join()
     log(f"done in {time.perf_counter() - t_all:.1f} s on {card}; "
         f"build {build_s:.2f} s")
     err = max(worst, spl["err"], pe["err"])
@@ -2151,17 +2535,25 @@ def main() -> int:
                p10["checks"].items() for mode, r in ch.items()}
     ksw10 = {label: k for label, (_ch, k) in p10["checks"].items()
              if k is not None}
+    n11 = p11["launches"]
+    chain11 = {f"{label}_{mode}": r for label, (ch, _k) in
+               p11["checks"].items() for mode, r in ch.items()}
+    ksw11 = {label: k for label, (_ch, k) in p11["checks"].items()
+             if k is not None}
     print(json.dumps({"kernels": [
         {"name": "chain_dp", "route": "cuda", "source": CHAIN_SOURCE,
          "replaces": CHAIN_REPLACES,
          "launches": e2e["launches"] + spl["chain"] + pe["chain"]
-         + rest["launches"] + bench9["launches"]["chain"] + n10["chain"],
+         + rest["launches"] + bench9["launches"]["chain"] + n10["chain"]
+         + n11["chain"],
          "launches_phase9": bench9["launches"]["chain"],
          "launches_phase10": n10["chain"],
+         "launches_phase11": n11["chain"],
          "max_abs_err": max(worst, e2e["err"], spl["chain_err"],
                             pe["chain_err"], rest["meshes"]["res"]["err"],
                             *(r["err"] for r in bench9["chain"].values()),
-                            *(r["err"] for r in chain10.values())),
+                            *(r["err"] for r in chain10.values()),
+                            *(r["err"] for r in chain11.values())),
          "ms": e2e["ms"],
          "plain_ms": e2e["plain_ms"], "bound_ms": e2e["bound_ms"],
          "bound_by": e2e["bound_by"], "library_ms": None,
@@ -2175,6 +2567,7 @@ def main() -> int:
          **_chain_fields("phase6", pe["chain_res"]["many_segs"]),
          **_chain_fields("phase8_mesh", rest["meshes"]["res"]),
          **_chain_fields("bench", bench),
+         **_chain_fields("phase11", p11["big"]),
          "anchors_per_s_bench": bench["anchors"] / bench["ms"] * 1e3,
          "checks_phase9": {
              k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
@@ -2183,15 +2576,20 @@ def main() -> int:
          "checks_phase10": {
              k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "form", "anchors")}
-             for k, r in chain10.items()}},
+             for k, r in chain10.items()},
+         "checks_phase11": {
+             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "form", "anchors")}
+             for k, r in chain11.items()}},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,
          "replaces": KSW_REPLACES,
          "launches": spl["ksw"] + pe["ksw"] + bench9["launches"]["ksw"]
-         + n10["ksw"],
+         + n10["ksw"] + n11["ksw"],
          "launches_phase9": bench9["launches"]["ksw"],
          "launches_phase10": n10["ksw"],
+         "launches_phase11": n11["ksw"],
          "max_abs_err": max(err, *(r["err"] for r in [
-             *bench9["ksw"].values(), *ksw10.values()])),
+             *bench9["ksw"].values(), *ksw10.values(), *ksw11.values()])),
          "ms": spl["ms"], "plain_ms": spl["plain_ms"],
          "bound_ms": spl["bound_ms"], "bound_by": spl["bound_by"],
          "library_ms": None, "step_ns": spl["step_ns"],
@@ -2209,15 +2607,20 @@ def main() -> int:
          "checks_phase10": {
              k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
                                    "bound_by")}
-             for k, r in ksw10.items()}},
+             for k, r in ksw10.items()},
+         "checks_phase11": {
+             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by")}
+             for k, r in ksw11.items()}},
         {"name": "ksw2_walk", "route": "cuda", "source": KSW_SOURCE,
          "replaces": WALK_REPLACES,
          "launches": spl["walk"] + pe["walk"] + bench9["launches"]["walk"]
-         + n10["walk"],
+         + n10["walk"] + n11["walk"],
          "launches_phase9": bench9["launches"]["walk"],
          "launches_phase10": n10["walk"],
+         "launches_phase11": n11["walk"],
          "max_abs_err": max(err, *(r["err"] for r in [
-             *bench9["ksw"].values(), *ksw10.values()])),
+             *bench9["ksw"].values(), *ksw10.values(), *ksw11.values()])),
          "ms": spl["walk_ms"],
          "plain_ms": spl["walk_plain_ms"],
          "bound_ms": spl["walk_bound_ms"],
@@ -2234,7 +2637,12 @@ def main() -> int:
                                 "plain_ms": r["walk_plain_ms"],
                                 "bound_ms": r["walk_bound_ms"],
                                 "bound_by": r["walk_bound_by"]}
-                            for k, r in ksw10.items()}}]}))
+                            for k, r in ksw10.items()},
+         "checks_phase11": {k: {"err": r["err"], "ms": r["walk_ms"],
+                                "plain_ms": r["walk_plain_ms"],
+                                "bound_ms": r["walk_bound_ms"],
+                                "bound_by": r["walk_bound_by"]}
+                            for k, r in ksw11.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

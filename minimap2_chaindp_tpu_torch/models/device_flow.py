@@ -176,6 +176,9 @@ class DeviceFlow:
              cuts) = shard_index_tables(mi, self.n_index)
             mesh.put("flow", dict(khi=khi, klo=klo, starts=starts, vhi=vhi,
                                   vlo=vlo))
+            # the tables each rank of an index row holds (equal shards)
+            self.shard_bytes = sum(a.nbytes for a in (
+                khi, klo, starts, vhi, vlo)) // self.n_index
             self._cuts = np.asarray(cuts, dtype=np.int64)  # key-pos ranges
 
     def _launch(self, q: dict, *, cap, gq, gr, use_exc):

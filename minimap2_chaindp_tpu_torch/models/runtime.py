@@ -60,7 +60,7 @@ from .batch_align import CudaAlignExecutor, run_scheduler
 from .device_flow import CAP_BUCKETS, M_BUCKETS, DeviceFlow, flow_mode_ok
 from .pipeline import (finish_unit_gen, format_frag, host_chain,
                        map_fragment_output, prepare_frag, seed_unit)
-from .steal import HOST_CH
+from .steal import BASE_NICE, HOST_CH, thread_nice
 
 # staged chain buckets: a unit takes the smallest that holds its anchors
 # (models/runtime.py:21); past the last one it chains on the host
@@ -133,6 +133,14 @@ class TorchRuntime:
         self.timers = Timers()
         self._flow = None
         self._flow_lock = threading.Lock()
+        # the flow's build: its own lock, so that the build, which may run
+        # on a thread of its own (_start_flow_build), holds up no other
+        # user of _flow_lock; set once a flow exists or its build failed
+        self._build_lock = threading.Lock()
+        self._flow_built = threading.Event()
+        self._flow_thread = None
+        self._flow_error = None
+        self._flow_error_raised = False
         self._seed_collector = None
         # -t worker pool for the host lane (kt_for over fragments,
         # kthread.c:125; :198-207)
@@ -160,10 +168,14 @@ class TorchRuntime:
                                             native_max=self.native_ext_max)
 
     def close(self) -> None:
-        """Stop the host lane's worker threads and tear the mesh down; the
-        bytes its ranks sent each other in steps are counted as mesh_bytes
-        (of them the all_gather's as mesh_allgather_bytes) and the index
-        shards sent at set-up as mesh_table_bytes."""
+        """Wait for a flow build still running on its own thread, stop the
+        host lane's worker threads and tear the mesh down; the bytes its
+        ranks sent each other in steps are counted as mesh_bytes (of them
+        the all_gather's as mesh_allgather_bytes) and the index shards sent
+        at set-up as mesh_table_bytes. Raises the exception of a failed
+        build that no batch has raised."""
+        if self._flow_thread is not None:
+            self._flow_thread.join()
         for ex in (self._pool, self._lane_ex):
             if ex is not None:
                 ex.shutdown(wait=True)
@@ -179,6 +191,9 @@ class TorchRuntime:
                                   sum(tot[k] for k in STEP_KINDS))
                 self.timers.count("mesh_allgather_bytes", tot["all_gather"])
                 self.timers.count("mesh_table_bytes", tot["tables"])
+        if self._flow_error is not None and not self._flow_error_raised:
+            self._flow_error_raised = True
+            raise self._flow_error
 
     def describe(self) -> str:
         """The routing and its settings, for the [timers] line."""
@@ -198,7 +213,7 @@ class TorchRuntime:
         if not flow_mode_ok(self.opt):
             return None
         if self._flow is None:
-            with self._flow_lock:
+            with self._build_lock:
                 if self._flow is None:
                     if self.mesh_shape is not None:
                         from ..parallel.mesh import Mesh
@@ -207,7 +222,32 @@ class TorchRuntime:
                     self._flow = DeviceFlow(self.mi, self.opt,
                                             device=self.device,
                                             mesh=self._mesh)
+                    self._flow_built.set()
         return self._flow
+
+    def _start_flow_build(self) -> None:
+        """Start the flow's build on a thread of its own, once, at the
+        niceness of an unproven device lane: the stealing routing's batches
+        map on the host lane meanwhile and never wait on the CSR upload.
+        Raises the exception of a build that failed."""
+        with self._flow_lock:
+            if self._flow_thread is None and self._flow is None:
+                self._flow_thread = threading.Thread(
+                    target=self._build_flow, daemon=True,
+                    name="mm2tpu-flow-build")
+                self._flow_thread.start()
+        if self._flow_error is not None:
+            self._flow_error_raised = True
+            raise self._flow_error
+
+    def _build_flow(self) -> None:
+        thread_nice(BASE_NICE)
+        try:
+            self._get_flow()
+        except BaseException as e:   # raised by the next batch or close()
+            self._flow_error = e
+        finally:
+            self._flow_built.set()
 
     def _host_rt(self):
         """The HostRuntime of the "host" routing, sharing this runtime's

@@ -32,9 +32,21 @@ What differs from the JAX module, and why:
   load and the allocator's warm-up, and map_stream's two batches pull
   their first chunks together) feeds no estimate (the JAX lane asks
   DeviceFlow.run per call, steal.py:341, 363);
-- no exception is caught on the card's path: a failed flow build or chunk
-  stops the host lane at its next chunk and is re-raised by
-  run_steal_batch after the join, with no hand-back of the chunk.
+- no exception is caught on the card's path: a failed chunk stops the
+  host lane at its next chunk and is re-raised by run_steal_batch after
+  the join, with no hand-back of the chunk;
+- the flow (and with it the CSR upload) is built on a thread of its own,
+  started by the runtime's first stealing batch
+  (TorchRuntime._start_flow_build): the device lane waits for it while
+  the host lane maps, so a batch never waits on the build (the JAX lane
+  builds it on the lane's thread before its first pull, and its final
+  join waits for the build, steal.py:434). A failed build is raised by
+  the next batch or by TorchRuntime.close(). The batch's wait in the join
+  is counted as steal_join_ms;
+- the host lane's cost estimate learns only from chunks drawn from the
+  queue either lane may take: pairs, multi-segment and oversized reads,
+  which the device lane never takes, cost it nothing (the JAX lane also
+  learns from them, steal.py:405, 413-428).
 Output is byte-identical to the host path: each read is mapped by exactly
 one lane, and both lanes emit the same native text.
 """
@@ -64,6 +76,8 @@ _ALPHA = 0.4
 # of the way to a faster chunk
 HOST_BEST_GROW = 1.02
 HOST_BEST_MAX_S = 60.0
+# how often a device lane waiting for the flow's build looks at `stop`
+FLOW_POLL_S = 0.02
 
 
 class StealState:
@@ -198,28 +212,37 @@ def _dev_map_chunk(rt, frags, idxs, rg_id) -> dict:
     return out
 
 
+def thread_nice(n: int) -> None:
+    """Set the calling thread's niceness; lowering it needs a privilege,
+    without which the thread stays where it is."""
+    try:
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), n)
+    except OSError:
+        pass
+
+
 def _dev_loop(rt, st: StealState, frags, rg_id, q_any, lock, results,
               stop: threading.Event, errors: list):
     """The device lane's thread: its priority follows measured
     profitability (an unproven or losing lane yields the core to the host
-    lane at BASE_NICE; a paying one competes at 0). The flow is built here,
-    before the first pull: its CSR upload must not hold up the host lane.
-    Any exception is kept for run_steal_batch to re-raise."""
-    my_tid = threading.get_native_id()
+    lane at BASE_NICE; a paying one competes at 0). It pulls nothing until
+    the flow's build, on a thread of its own, has finished, and leaves as
+    soon as the host lane has mapped every read; a failed build leaves
+    the batch to the host lane (the next batch raises it). Any exception
+    of a chunk is kept for run_steal_batch to re-raise."""
     cur = [None]
 
     def lane_nice(n):
-        if cur[0] == n:
-            return
-        cur[0] = n
-        try:
-            os.setpriority(os.PRIO_PROCESS, my_tid, n)
-        except OSError:
-            pass   # lowering niceness needs a privilege: stay where it is
+        if cur[0] != n:
+            cur[0] = n
+            thread_nice(n)
 
     try:
         lane_nice(BASE_NICE)
-        if rt._get_flow() is not None:
+        while not rt._flow_built.wait(FLOW_POLL_S):
+            if stop.is_set():
+                return
+        if rt._flow is not None:
             _dev_loop_body(rt, st, frags, rg_id, q_any, lock, results, stop,
                            lane_nice)
     except BaseException as e:   # re-raised by run_steal_batch
@@ -294,9 +317,13 @@ def _dev_loop_body(rt, st, frags, rg_id, q_any, lock, results, stop,
 def run_steal_batch(rt, frags, rg_id: str = "") -> list[list[str]]:
     """Map one batch through the two stealing lanes; output order ==
     input order, byte-identical to the host path. An exception of the
-    device lane is re-raised here, after the join."""
+    device lane is re-raised here, after the join, and one of the flow's
+    build before the batch starts."""
     from .device_flow import flow_mode_ok
     from .runtime import DEV_QLEN_MAX
+    lane = flow_mode_ok(rt.opt)
+    if lane:
+        rt._start_flow_build()      # raises a build that failed
     st = rt._steal_state
     if st is None:
         # map_stream's two batch threads may both arrive here first
@@ -316,7 +343,7 @@ def run_steal_batch(rt, frags, rg_id: str = "") -> list[list[str]]:
     stop = threading.Event()
     errors: list = []
     worker = None
-    if flow_mode_ok(rt.opt):
+    if lane:
         worker = threading.Thread(
             target=_dev_loop,
             args=(rt, st, frags, rg_id, q_any, lock, results, stop, errors),
@@ -332,14 +359,19 @@ def run_steal_batch(rt, frags, rg_id: str = "") -> list[list[str]]:
                 break
             t0 = time.monotonic()
             out = _host_map_chunk(rt, frags, idxs, rg_id)
-            now = time.monotonic()
-            _host_best_update(st, (now - t0) / len(idxs), now)
+            if src is q_any:
+                # only reads the device lane could have taken price it
+                now = time.monotonic()
+                _host_best_update(st, (now - t0) / len(idxs), now)
             with lock:
                 results.update(out)
     finally:
         stop.set()
         if worker is not None:
+            t0 = time.perf_counter()
             worker.join()        # bounded: at most one chunk in flight
+            rt.timers.count("steal_join_ms", round(
+                (time.perf_counter() - t0) * 1000, 3))
     if errors:
         raise errors[0]
     return [results[i] for i in range(len(frags))]

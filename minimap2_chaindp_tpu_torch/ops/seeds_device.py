@@ -25,6 +25,55 @@ from .. import constants as C
 SIGN = -0x80000000            # int32 sign bit
 PAD_HI = 0x7FFFFFFF           # sort-key high half of padded slots
 BIAS = np.int64(0x80000000)   # maps u32 order onto i32 order
+# the device tables address keys and positions with int32
+INT32_MAX = 2**31 - 1
+# elements a step of the tables' upload: 256 MiB of int64 staging
+UPLOAD_CHUNK = 1 << 25
+
+
+def check_int32_tables(n_keys: int, n_positions: int,
+                       what: str = "index") -> None:
+    """Raise ValueError unless an index of `n_keys` keys and `n_positions`
+    positions fits the device tables, which hold key positions and value
+    offsets as int32: neither may pass 2^31 - 1."""
+    if n_keys > INT32_MAX or n_positions > INT32_MAX:
+        raise ValueError(
+            f"{what}: {n_keys} keys and {n_positions} positions; the device "
+            f"tables index both as int32, so neither may pass 2^31 - 1 = "
+            f"{INT32_MAX} (split the index with -I)")
+
+
+def _hi32(x):
+    return (x >> 32).to(torch.int32)
+
+
+def _lo32(x):
+    lo = x & 0xFFFFFFFF
+    return (lo - ((lo >> 31) << 32)).to(torch.int32)
+
+
+def upload_int32(a: np.ndarray, device, parts) -> list:
+    """int32 tensors on `device` made from the 64-bit array `a` chunk by
+    chunk: each output is one function of `parts` applied to the chunk as
+    int64 on the device. The host stages one chunk at a time (pinned for a
+    card) and makes no int64 or int32 copy of the whole array, which may be
+    an index's mmap'd table."""
+    dev = torch.device(device)
+    a = np.asarray(a)
+    a64 = (a if a.dtype.itemsize == 8 else a.astype(np.int64)).view(np.int64)
+    n = len(a64)
+    outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in parts]
+    step = max(1, min(n, UPLOAD_CHUNK))
+    stage = torch.empty(step, dtype=torch.int64,
+                        pin_memory=dev.type == "cuda")
+    stage_np = stage.numpy()
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        stage_np[:hi - lo] = a64[lo:hi]
+        x = stage[:hi - lo].to(dev)     # from pinned memory: synchronous
+        for out, fn in zip(outs, parts):
+            out[lo:hi] = fn(x)
+    return outs
 
 
 def split_u64(v: np.ndarray):
@@ -37,16 +86,19 @@ def split_u64(v: np.ndarray):
 
 class DeviceIndex:
     """The CSR tables the collect reads, as int32 tensors on `device`:
-    `starts` (n_keys + 1) and the values split into `vhi`/`vlo`. The flow
-    looks up key positions on the host; the split key tables `khi`/`klo`
-    that the key path searches are uploaded on its first `key_tables()`
-    call, so a run that never collects by key never holds them."""
+    `starts` (n_keys + 1) and the values split into `vhi`/`vlo` (the int32
+    bit patterns of each u64's high and low words), split on the device as
+    they are uploaded. The flow looks up key positions on the host; the
+    split key tables `khi`/`klo` that the key path searches are uploaded on
+    its first `key_tables()` call, so a run that never collects by key
+    never holds them. An index past the int32 limit raises ValueError."""
 
     def __init__(self, mi, device):
-        vhi = (mi.values >> np.uint64(32)).astype(np.int64).astype(np.int32)
-        vlo = (mi.values & np.uint64(0xFFFFFFFF)).astype(np.int64) \
-            .astype(np.int32)
-        self._upload(mi.starts.astype(np.int32), vhi, vlo, device, mi.keys)
+        check_int32_tables(len(mi.keys), len(mi.values))
+        starts, = upload_int32(mi.starts, device,
+                               (lambda x: x.to(torch.int32),))
+        vhi, vlo = upload_int32(mi.values, device, (_hi32, _lo32))
+        self._set(starts, vhi, vlo, device, mi.keys)
 
     @classmethod
     def from_arrays(cls, starts, vhi, vlo, device,
@@ -54,14 +106,15 @@ class DeviceIndex:
         """Tables given as int32 arrays, e.g. the JAX package's
         `DeviceIndex` tables converted with np.asarray; `keys` (the sorted
         u64 key table) only where the key path will run."""
-        dx = cls.__new__(cls)
-        dx._upload(starts, vhi, vlo, device, keys)
-        return dx
-
-    def _upload(self, starts, vhi, vlo, device, keys):
+        check_int32_tables(len(starts) - 1, len(vhi))
         as_t = lambda a: torch.tensor(np.asarray(a, dtype=np.int32),
                                       device=device)
-        self.starts, self.vhi, self.vlo = as_t(starts), as_t(vhi), as_t(vlo)
+        dx = cls.__new__(cls)
+        dx._set(as_t(starts), as_t(vhi), as_t(vlo), device, keys)
+        return dx
+
+    def _set(self, starts, vhi, vlo, device, keys):
+        self.starts, self.vhi, self.vlo = starts, vhi, vlo
         self.n_keys = len(starts) - 1
         self._keys, self._device = keys, device
         self.khi = self.klo = None
@@ -124,6 +177,13 @@ def device_index_cached(mi, device) -> DeviceIndex:
             _DEVICE_INDEX_CACHE.pop(next(iter(_DEVICE_INDEX_CACHE)))
         _DEVICE_INDEX_CACHE[key] = dx
     return dx
+
+
+def release_device_index(mi, device) -> bool:
+    """Drop `mi`'s cached tables on `device` (a runtime that still holds
+    them keeps them alive); True if there was an entry."""
+    key = (index_fingerprint(mi), device_key(device))
+    return _DEVICE_INDEX_CACHE.pop(key, None) is not None
 
 
 def _collect_dev_pos(starts, vhi, vlo, qposidx, qpos, qspan, qseg, qtandem,
@@ -258,14 +318,12 @@ def shard_index_tables(mi, n_shards: int):
     (n_shards*(Kp+1),) starts / (n_shards*Vp,) values, ready to device_put
     with PartitionSpec("index").
 
-    Copied verbatim from minimap2_chaindp_tpu/ops/seeds_device.py:256-302
-    (the port's Mesh.put sends shard i of each stacked table to the ranks
-    of index i; its collectives want equal shapes just as shard_map does)."""
+    Copied from minimap2_chaindp_tpu/ops/seeds_device.py:256-302 (the
+    port's Mesh.put sends shard i of each stacked table to the ranks of
+    index i; its collectives want equal shapes just as shard_map does),
+    with the shard sizes checked against the int32 limit before any table
+    is split: a shard past it raises ValueError."""
     K = len(mi.keys)
-    khi_g, klo_g = split_u64(mi.keys)
-    vhi_g = (mi.values >> np.uint64(32)).astype(np.int64).astype(np.int32)
-    vlo_g = (mi.values & np.uint64(0xFFFFFFFF)).astype(np.int64) \
-        .astype(np.int32)
     # cut by cumulative VALUE volume, not key count: occurrence-skewed
     # genomes would otherwise pad every shard's value table to the hottest
     # shard's size (the structure exists because values exceed one HBM)
@@ -277,10 +335,17 @@ def shard_index_tables(mi, n_shards: int):
     for s in range(1, n_shards):  # keep cuts monotone on tiny indexes
         cuts[s] = min(max(cuts[s], cuts[s - 1]), K)
     Kp = max(max(cuts[s + 1] - cuts[s] for s in range(n_shards)), 1)
-    khi = np.full((n_shards, Kp), 0x7FFFFFFF, np.int32)
-    klo = np.full((n_shards, Kp), 0x7FFFFFFF, np.int32)
     Vp = max(max(int(mi.starts[cuts[s + 1]] - mi.starts[cuts[s]])
                  for s in range(n_shards)), 1)
+    # each shard's tables are int32 with shard-local offsets (the port's
+    # check: the JAX copy casts without one)
+    check_int32_tables(Kp, Vp, f"index shard of {n_shards}")
+    khi_g, klo_g = split_u64(mi.keys)
+    vhi_g = (mi.values >> np.uint64(32)).astype(np.int64).astype(np.int32)
+    vlo_g = (mi.values & np.uint64(0xFFFFFFFF)).astype(np.int64) \
+        .astype(np.int32)
+    khi = np.full((n_shards, Kp), 0x7FFFFFFF, np.int32)
+    klo = np.full((n_shards, Kp), 0x7FFFFFFF, np.int32)
     starts = np.zeros((n_shards, Kp + 1), np.int32)
     vhi = np.zeros((n_shards, Vp), np.int32)
     vlo = np.zeros((n_shards, Vp), np.int32)

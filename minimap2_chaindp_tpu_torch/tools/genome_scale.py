@@ -6,18 +6,22 @@ with the fast path on == off on the host and the card's lane == the host.
 Port of tools/genome_scale.py. Every mapping goes through the port's CLI
 (`cli.main()` in this process, SAM to a temp file):
   * the genome (utils/genome_synth.make_genome: 2 Mbp contigs, seed 42);
-  * the in-process index build (native, map-ont's k/w): seconds, peak RSS,
-    keys and occurrence distribution; then the build once more with the
-    minimizer pairs sorted on the lane's device (MM2TPU_DEVICE_INDEX=1,
-    index/build_device.py), its seconds and its tables held against the
-    native build's;
-  * the reads; the `-d` dump (`-H -d` for map-pb) and the mmap / eager
-    load split;
+  * the in-process index build (native, map-ont's k/w, -t BUILD_THREADS):
+    seconds, whether its sorted blocks spilled to disk, peak RSS over the
+    build, keys and occurrence distribution; then the build once more with
+    the minimizer pairs sorted on the lane's device (MM2TPU_DEVICE_INDEX=1,
+    index/build_device.py): its seconds, peak RSS and the card's peak
+    memory, and its tables held against the native build's;
+  * the reads; the `-d` dump (`-H -d` for map-pb), each with its seconds
+    and size, the mmap / eager load split, and the upload of DeviceIndex
+    from the mmap'd index (seconds, bytes on the device);
   * map-ont and map-pb on the host with the fast path on (-t 4) and off
     (MM2TPU_NATIVE_SKELETON=0), which must be IDENTICAL, the Q60 accuracy
     line, and the `--device` lane's row beside it (-t 4): its reads/s, its
-    SAM IDENTICAL to the host's, and on the card the peak device memory
-    (torch.cuda.max_memory_allocated after reset_peak_memory_stats);
+    SAM IDENTICAL to the host's, on the card the peak device memory
+    (torch.cuda.max_memory_allocated after reset_peak_memory_stats), its
+    counters (the chain kernel's share of the reads, host_chain_oversized,
+    fallback) and the anchors a read with the capacity buckets they take;
   * `paftools mapeval` through the port's tools/paftools.py (1% gate);
   * `--pe N` FR pairs under -x sr, on the host (construction-truth gate)
     and on the lane (IDENTICAL);
@@ -41,9 +45,9 @@ import argparse
 import contextlib
 import io as _io
 import os
-import resource
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -51,8 +55,39 @@ import numpy as np
 from ..utils.genome_synth import make_genome, simulate, simulate_pairs
 
 
-def peak_rss_mb():
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+# -t of the in-process index builds (the maps run with -t 4 too)
+BUILD_THREADS = 4
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class PeakRSS:
+    """The process's resident set at the start of a `with` block and its
+    peak over the block, sampled every 50 ms (the rusage peak only rises,
+    so it cannot tell two builds of one process apart)."""
+
+    def __enter__(self):
+        self.start = self.peak = rss_bytes()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.05):
+            self.peak = max(self.peak, rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, rss_bytes())
+
+    def __str__(self):
+        return (f"peak RSS {self.peak / 1e6:.0f} MB (at its start "
+                f"{self.start / 1e6:.0f} MB)")
 
 
 @contextlib.contextmanager
@@ -117,6 +152,39 @@ class Lane:
             else "reads/s not measured (plain versions on the CPU)"
 
 
+def anchor_stats(mi, mo, frags) -> dict:
+    """The anchors of each single-segment read as the fused flow counts
+    them on the host before any device work (host_seed_stats, mid_occ
+    applied), and the flow's capacity bucket each read takes: the smallest
+    of CAP_BUCKETS that holds its anchors, "staged" past the last bucket
+    (or past the last minimizer bucket), "empty" with no anchor. Returns
+    dict(reads, mean, p99, max, buckets)."""
+    from ..models.device_flow import CAP_BUCKETS, M_BUCKETS, host_seed_stats
+    from ..models.pipeline import prepare_frag, seed_unit
+    counts, buckets = [], {}
+    for fr in frags:
+        if len(fr.segs) != 1:
+            continue
+        _work, _flipped, us = prepare_frag(mo, fr.segs)
+        info = seed_unit(mi, mo, us[0], collect_hits=False)
+        mv = info.mv
+        n = 0 if mv is None or not len(mv) else \
+            host_seed_stats(mi, mv, mo.mid_occ)[0]
+        counts.append(n)
+        if n == 0:
+            b = "empty"
+        elif len(mv) > M_BUCKETS[-1] or n > CAP_BUCKETS[-1]:
+            b = "staged"
+        else:
+            b = next(c for c in CAP_BUCKETS if n <= c)
+        buckets[b] = buckets.get(b, 0) + 1
+    a = np.asarray(counts or [0], dtype=np.int64)
+    return dict(reads=len(counts), mean=float(a.mean()),
+                p99=int(np.percentile(a, 99)), max=int(a.max()),
+                buckets=dict(sorted(buckets.items(), key=lambda kv: (
+                    isinstance(kv[0], str), str(kv[0]).zfill(8)))))
+
+
 def identity(a, b) -> str:
     return "IDENTICAL" if a == b else "MISMATCH"
 
@@ -134,8 +202,10 @@ def gate(label, a, b):
 
 
 def build_stats(ref, mb, lane):
-    """The in-process native index build (time, peak RSS, occurrences),
-    then the same build with the pair sort on the lane's device."""
+    """The in-process native index build (time, spill state, peak RSS,
+    occurrences), then the same build with the pair sort on the lane's
+    device (time, peak RSS, the card's peak memory), both at -t
+    BUILD_THREADS, its tables held against the native build's."""
     from ..constants import seq_to_nt4
     from ..index.build import build_index
     from ..io.fastx import read_fastx
@@ -144,26 +214,102 @@ def build_stats(ref, mb, lane):
     for r in read_fastx(ref):
         names.append(r.name)
         seqs.append(seq_to_nt4(r.seq))
-    # a tuple: build_index frees the entries of a list as it packs them
-    mi = build_index(names, tuple(seqs), 10, 15, 0, 14)
-    t_idx = time.perf_counter() - t0
-    print(f"[index] build {t_idx:.1f}s  ({mb / t_idx:.1f} Mb/s, "
-          f"{len(mi.keys) / 1e6:.1f}M keys, {len(mi.values) / 1e6:.1f}M "
-          f"positions, peak RSS {peak_rss_mb():.0f} MB)")
+    t_read = time.perf_counter() - t0
+    from ..utils import mlog
+    err = _io.StringIO()
+    verbose = mlog.verbose
+    mlog.set_verbose(3)         # the build logs its spill decision at 3
+    try:
+        with PeakRSS() as rss, contextlib.redirect_stderr(err):
+            t0 = time.perf_counter()
+            # a tuple: build_index frees the entries of a list as it
+            # packs them
+            mi = build_index(names, tuple(seqs), 10, 15, 0, 14,
+                             n_threads=BUILD_THREADS)
+            t_idx = time.perf_counter() - t0
+    finally:
+        mlog.set_verbose(verbose)
+    blocks = "spilled to disk" if "spill build auto-enabled" \
+        in err.getvalue() else "in RAM"
+    print(f"[index] build {t_idx:.1f}s at -t {BUILD_THREADS}, sorted blocks "
+          f"{blocks} ({mb / t_idx:.1f} Mb/s, {len(mi.keys) / 1e6:.1f}M keys, "
+          f"{len(mi.values) / 1e6:.1f}M positions, {rss}; FASTA read "
+          f"{t_read:.1f}s)")
     occ = np.diff(mi.starts)
     print(f"[index] occurrence dist: mean {occ.mean():.2f}  "
           f"p50 {int(np.percentile(occ, 50))}  "
           f"p99 {int(np.percentile(occ, 99))}  max {int(occ.max())}")
-    t0 = time.perf_counter()
-    md = build_index(names, seqs, 10, 15, 0, 14, device=lane.device)
-    t_dev = time.perf_counter() - t0
+    del occ
+    if lane.on_card:
+        import torch
+        torch.cuda.reset_peak_memory_stats()
+    with PeakRSS() as rss:
+        t0 = time.perf_counter()
+        md = build_index(names, seqs, 10, 15, 0, 14,
+                         n_threads=BUILD_THREADS, device=lane.device)
+        t_dev = time.perf_counter() - t0
     same = all(np.array_equal(getattr(mi, f), getattr(md, f))
                for f in ("keys", "starts", "values"))
-    t_txt = f"{t_dev:.1f}s" if lane.on_card else "time not measured"
+    if lane.on_card:
+        t_txt = (f"{t_dev:.1f}s, {rss}, the card's peak "
+                 f"{torch.cuda.max_memory_allocated() / 1e6:.0f} MB")
+    else:
+        t_txt = "time not measured"
     print(f"[index] device build (MM2TPU_DEVICE_INDEX=1, pairs sorted on "
           f"{lane.device}): {t_txt}; tables {identity(same, True)}")
     if not same:
         raise SystemExit(1)
+
+
+def upload_stats(mmi, lane):
+    """DeviceIndex's upload on the lane's device from the mmap'd index:
+    seconds (pages already in the page cache) and bytes on the device."""
+    from ..index.serialize import load_index
+    from ..ops.seeds_device import DeviceIndex
+    mi = load_index(mmi, mmap=True)
+    t0 = time.perf_counter()
+    dx = DeviceIndex(mi, lane.device)
+    if lane.on_card:
+        import torch
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    nb = dx.nbytes()
+    del dx, mi
+    t_txt = f"{dt:.2f}s ({nb / dt / 1e9:.2f} GB/s)" if lane.on_card \
+        else "time not measured"
+    print(f"[upload] DeviceIndex from the mmap'd index on {lane.device}: "
+          f"{nb} B in {t_txt}")
+
+
+def lane_counters(label, nreads):
+    """The lane run's counters (cli.LAST_RUN_COUNTERS): the share of
+    fragments the chain kernel chained and where the rest went."""
+    from .. import cli
+    c = cli.LAST_RUN_COUNTERS
+    dev = c.get("device_reads", 0) + c.get("staged_device_reads", 0)
+    print(f"[{label}] lane counters: chain device share "
+          f"{dev / max(nreads, 1):.1%} (device_reads "
+          f"{c.get('device_reads', 0)} + staged_device_reads "
+          f"{c.get('staged_device_reads', 0)} of {nreads}); " + " ".join(
+              f"{k}={c.get(k, 0)}" for k in (
+                  "host_chain_oversized", "host_chain_bw", "fallback",
+                  "staged_frags", "native_finish", "ext_device")))
+
+
+def read_anchor_stats(label, preset, idx, q):
+    """anchor_stats of the reads `q` against the mmap'd index `idx`."""
+    from ..index.serialize import load_index
+    from ..io.fastx import read_frags
+    from ..options import set_opt
+    mi = load_index(idx, mmap=True)
+    _io_opt, mo = set_opt(preset)
+    mo.update(mi)
+    frags = [f for b in read_frags([q], mo.mini_batch_size, False)
+             for f in b]
+    st = anchor_stats(mi, mo, frags)
+    print(f"[{label}] anchors a read: mean {st['mean']:.1f}, p99 "
+          f"{st['p99']}, max {st['max']} over {st['reads']} reads; "
+          f"capacity buckets {st['buckets']}")
 
 
 def map_presets(ns, lane, mmi, mmi_h, ont, pb):
@@ -191,6 +337,8 @@ def map_presets(ns, lane, mmi, mmi_h, ont, pb):
               f"{secs}{mem_txt} — vs --device host "
               f"{identity(out_l, out_on)}")
         gate(f"[{label}] --device {lane.device}", out_l, out_on)
+        lane_counters(label, nreads)
+        read_anchor_stats(label, preset, idx, q)
         # accuracy gate on read-name truth (paftools mapeval convention)
         wrong = n_q60 = 0
         for ln in out_on:
@@ -339,7 +487,9 @@ def main(argv=None):
               f"{os.path.getsize(mmi) / 1e6:.0f} MB in {dtd:.1f}s")
     mmi_h = os.path.join(ns.dir, f"genomeH{ns.mb}.mm2i")
     if not os.path.exists(mmi_h):
-        run_cli(["--device", "host", "-H", "-d", mmi_h, ref])
+        dtd, _ = run_cli(["--device", "host", "-H", "-d", mmi_h, ref])
+        print(f"[index] -H -d wrote {os.path.getsize(mmi_h) / 1e6:.0f} MB "
+              f"in {dtd:.1f}s")
 
     # the load split: the mmap'd load, its first-touch walk, the eager load
     from ..index.serialize import load_index
@@ -357,6 +507,7 @@ def main(argv=None):
     print(f"[load] mmap {t_mm * 1e3:.1f} ms + full first-touch walk "
           f"{t_touch:.1f}s; eager load {t_eager:.1f}s "
           f"({os.path.getsize(mmi) / 1e6:.0f} MB)")
+    upload_stats(mmi, lane)
 
     map_presets(ns, lane, mmi, mmi_h, ont, pb)
     if not ns.skip_mapeval:

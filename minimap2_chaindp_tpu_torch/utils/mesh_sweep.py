@@ -11,9 +11,9 @@ equal), then one runtime per shape (`mesh_shape=(D, I)`, rank r on
 cuda:r over nccl; gloo CPU ranks under `--device cpu`) and the device
 routing, one after another, each warmed by one untimed pass and then
 timed twice. Prints each run's reads/s, each mesh's set-up seconds (spawn,
-the index shards' scatter, the first pass) and its bytes a read
-(mesh_bytes, all_gather, staged), and as the last line the whole result
-as JSON. Host wall clock; the card synchronised at the end of each run.
+the index shards' scatter, the first pass), its bytes a read (mesh_bytes,
+all_gather, staged) and the index bytes sent at set-up and held by each
+rank, and as the last line the whole result as JSON. Host wall clock; the card synchronised at the end of each run.
 """
 from __future__ import annotations
 
@@ -96,13 +96,15 @@ def main(argv=None) -> int:
         if kw:                        # bytes over all three passes
             rec.update({k: c.get(k, 0) / (3 * n) for k in (
                 "mesh_bytes", "mesh_allgather_bytes")},
-                mesh_table_bytes=c.get("mesh_table_bytes", 0))
+                mesh_table_bytes=c.get("mesh_table_bytes", 0),
+                shard_bytes=rt._flow.shard_bytes)
         out["runs"][label] = rec
         log(f"{label}: byte-identical; reads/s {rates[0]:.1f}, "
             f"{rates[1]:.1f}; set-up with the first pass {setup:.1f} s; "
             + ", ".join(f"{k} {v:.1f}" for k, v in rec.items()
                         if k.startswith("mesh_") and k != "mesh_table_bytes")
-            + (f" a read; index shards {rec['mesh_table_bytes']} B"
+            + (f" a read; index shards {rec['mesh_table_bytes']} B sent "
+               f"at set-up, {rec['shard_bytes']} B held by each rank"
                if kw else ""))
     print(json.dumps(out))
     return 0

@@ -3,8 +3,11 @@ the kernels' plain versions: every routing, with the crossovers at 0 and
 at values that split the test reads, writes HostRuntime's lines through
 map_stream, as does the JAX DeviceRuntime under the environment the CLI
 maps to that routing; the stealing lane really steals, covers every read
-once and lets a device-lane error out; its economics equal the JAX
-module's on seeded sequences; the extension crossover of
+once and lets a device-lane error out; no stealing batch waits on the
+flow's build, which close() waits for and whose failure the next batch or
+close() raises; the host lane's estimate learns from the chunks either
+lane may take only; its economics equal the JAX module's on seeded
+sequences; the extension crossover of
 CudaAlignExecutor; and the CLI under MM2TPU_FLOW_SHARE and MM2TPU_STEAL.
 Every comparison is exact."""
 import copy
@@ -365,3 +368,107 @@ def test_routing_rejects_bad_settings(lanes, env, kw):
     with pytest.raises(ValueError):
         kw = runtime_kwargs(env) if kw is None else kw
         TorchRuntime(lanes["mi"], lanes["mo"], device="cpu", **kw)
+
+
+class _BlockedFlow:
+    """A DeviceFlow whose build waits for `gate` and then builds the real
+    flow, or raises `error`."""
+    gate: threading.Event = None
+    error: BaseException | None = None
+
+    def __new__(cls, *a, **kw):
+        from minimap2_chaindp_tpu_torch.models import device_flow
+        assert cls.gate.wait(120)
+        if cls.error is not None:
+            raise cls.error
+        return device_flow.DeviceFlow(*a, **kw)
+
+
+def _blocked_flow(monkeypatch, error=None):
+    from minimap2_chaindp_tpu_torch.models import runtime
+    gate = threading.Event()
+    flow = type("Flow", (_BlockedFlow,), dict(gate=gate, error=error))
+    monkeypatch.setattr(runtime, "DeviceFlow", flow)
+    return gate
+
+
+def test_steal_batch_does_not_wait_on_flow_build(lanes, monkeypatch):
+    """A stealing batch whose flow is still being built (its build held on
+    an event) returns the host path's bytes with the build unfinished: the
+    host lane mapped every read and the device lane left without waiting.
+    The batch's wait in the join is counted; close() waits for the build,
+    after which the flow exists."""
+    gate = _blocked_flow(monkeypatch)
+    rt = TorchRuntime(lanes["mi"], lanes["mo"], device="cpu",
+                      routing="steal")
+    assert rt.map_batch(lanes["frags"]) == lanes["want"]
+    assert rt._flow is None and not gate.is_set()
+    c = rt.timers.counters
+    assert c.get("steal_device_reads", 0) == 0
+    assert c["fast_native"] == N_STEAL and "steal_join_ms" in c
+    closer = threading.Thread(target=rt.close)
+    closer.start()
+    closer.join(0.3)
+    assert closer.is_alive()        # close() waits for the build
+    gate.set()
+    closer.join(120)
+    assert not closer.is_alive() and rt._flow is not None
+
+
+@pytest.mark.parametrize("raised_by", ["next_batch", "close"])
+def test_steal_flow_build_error_is_raised(lanes, monkeypatch, raised_by):
+    """A build that fails after its batch has started leaves that batch to
+    the host lane; the exception is raised by the next batch, or by
+    close() when no batch came, and never swallowed."""
+    gate = _blocked_flow(monkeypatch, RuntimeError("flow build failed"))
+    rt = TorchRuntime(lanes["mi"], lanes["mo"], device="cpu",
+                      routing="steal")
+    assert rt.map_batch(lanes["frags"]) == lanes["want"]
+    gate.set()
+    assert rt._flow_built.wait(120)
+    if raised_by == "next_batch":
+        with pytest.raises(RuntimeError, match="flow build failed"):
+            rt.map_batch(lanes["frags"])
+        rt.close()                  # raised once: close() is quiet
+    else:
+        with pytest.raises(RuntimeError, match="flow build failed"):
+            rt.close()
+
+
+def test_steal_host_estimate_learns_from_shared_chunks_only(monkeypatch):
+    """A batch of pairs and single reads: the host lane maps the pairs'
+    chunks (host-only) first and then the single reads'; only the latter
+    feed _host_best_update, so a slow pair chunk leaves the estimate at
+    the single reads' cost."""
+    clock = [0.0]
+    fake = SimpleNamespace(monotonic=lambda: clock[0],
+                           thread_time=lambda: 0.0,
+                           perf_counter=lambda: clock[0])
+
+    def chunk(rt, frags, idxs, rg_id):
+        pairs = len(frags[idxs[0]].segs) == 2
+        clock[0] += 10.0 if pairs else 0.001 * len(idxs)
+        return {i: [f"r{i}"] for i in idxs}
+    seen = []
+    real_update = TSteal._host_best_update
+
+    def update(st, r, now):
+        seen.append(r)
+        real_update(st, r, now)
+    monkeypatch.setattr(TSteal, "_host_map_chunk", chunk)
+    monkeypatch.setattr(TSteal, "_host_best_update", update)
+    monkeypatch.setattr(TSteal, "time", fake)
+    seg = SimpleNamespace(seq="A" * 100)
+    frags = ([SimpleNamespace(segs=[seg, seg])
+              for _ in range(2 * TSteal.HOST_CH)]
+             + [SimpleNamespace(segs=[seg])
+                for _ in range(3 * TSteal.HOST_CH)])
+    rt = SimpleNamespace(opt=set_opt("splice")[1], _draining=True,
+                         _steal_state=TSteal.StealState())
+    out = TSteal.run_steal_batch(rt, frags)
+    assert out == [[f"r{i}"] for i in range(len(frags))]
+    assert seen == pytest.approx([0.001] * 3)
+    st = rt._steal_state
+    assert st.host_per_read == pytest.approx(0.001)
+    # (with the pair chunks it would start at 10 s / 24 = 0.42 s a read)
+    assert 0.001 <= st.host_best < 0.0011
