@@ -11,7 +11,9 @@ Phases, each printing its own lines:
      (tolerance zero): the CUDA chain kernel and chain_scores_batch_ref on
      single-seg, many_segs, cdna and max_skip-flagged corpora; the ksw2
      forward and walk kernels and ksw_forward_ref / ksw_walk_ref on
-     ksw_cases() (every ez column, every step code, fin (i, j, k));
+     ksw_cases() (every ez column, every step code, fin (i, j, k)), whose
+     last cases hold base code 4 (N, IUPAC) in queries and targets
+     (ambiguous_ksw_cases);
   4. the fused flow end to end: a synthetic 250 Mbp genome (125 x 2 Mbp
      contigs, cached under build/smoke/), its index built once under
      map-ont with the CSR tables on the card, 1000 simulated 10 kb reads at
@@ -89,6 +91,19 @@ Phases, each printing its own lines:
      largest kernel inputs held against the plain versions, the largest
      chain input's time and bound printed; the tables are freed before
      the phase ends.
+ 12. the inputs a human reference has: phase 4's genome masked (about
+     half its bases lowercased in runs, N gaps at each contig's ends,
+     inside it and short ones, IUPAC codes; utils/genome_synth) with
+     phase 5's gene loci patched in, made with its reads in a process of
+     its own during phases 5-11; its map-ont, sr and splice indexes built
+     with the pair sort on the card; P12_READS 10 kb reads (some across
+     the gaps' edges) with Ns, IUPAC codes and lowercase stretches under
+     map-ont, P12_PAIRS pairs with about 0.5% N under -x sr, P12_TX
+     transcripts with Ns under -x splice --MD; each under the device and
+     steal routings at -t 3, byte-identical to HostRuntime, >= 90% of the
+     map-ont reads chained by the kernel; each run's largest kernel
+     inputs and its largest extension launch with a code-4 base held
+     against the plain versions, at least one such launch required.
 `phase7_turns(parent)` is not run by main(): it holds the stealing
 lane's repairs against another checkout of the repo (phase 7's steal runs
 on phase 4's reads and phase 6's pairs, cold and warm, parent and this
@@ -98,13 +113,14 @@ modes) and the ksw2 kernels (on the largest launch) are checked and timed
 again on the inputs the path gave them.
 Each of phases 4-6, each run of phase 7, each path of phase 8 (entry(),
 each timed run of the two meshes, the dry run) and each run and option
-case of phase 10 and each run of phase 11 sets the launch counters to 0
-just before its run and reads them just after; the kernels line counts
-phases 4, 5, 6, 8, 9, 10 and 11 (phase 9's processes start from 0 and
-report their counts in the bench's record), with phase 9's, 10's and 11's
-also apart (launches_phase9, launches_phase10, launches_phase11) beside
-the checks of their kept inputs (in checks_phase10 the option cases' as
-opt_<case>; checks_phase11 by routing and mode). A mesh's other ranks
+case of phase 10 and each run of phases 11 and 12 sets the launch
+counters to 0 just before its run and reads them just after; the kernels
+line counts phases 4, 5, 6, 8, 9, 10, 11 and 12 (phase 9's processes
+start from 0 and report their counts in the bench's record), with phase
+9's to 12's also apart (launches_phase9 ... launches_phase12) beside the
+checks of their kept inputs (in checks_phase10 the option cases' as
+opt_<case>; checks_phase11 by routing and mode; checks_phase12 by input
+and routing, the code-4 launches as <input>_<routing>_code4). A mesh's other ranks
 are processes of their own, but in a 1 x I mesh rank 0 runs every chain (the index-0
 rank of a data row chains it, models/device_pipeline.py).
 The second-to-last line is the kernels' JSON record, the last line
@@ -478,27 +494,111 @@ def _ext_jobs(rng, n, tlen_rng, ws=(25, 100, 751), zdrops=(100, 400)):
     return jobs
 
 
-def _spliced_job(rng, flag, n_exons, exon=60, intron=120, err=0.05):
+def _spliced_job(rng, flag, n_exons, exon=60, intron=120, err=0.05,
+                 n_at=None):
     """A cDNA/genome pair with GT..AG introns (the corpus style of
-    tests/test_ksw2_splice_pallas.py)."""
+    tests/test_ksw2_splice_pallas.py). `n_at` puts code 4 (N) on the
+    genome at every intron's "donor" G, its "acceptor" G, or inside each
+    "intron" and "exon"."""
     genome, cdna = [], []
     for i in range(n_exons):
-        ex = rng.integers(0, 4, exon + int(rng.integers(0, 30))).tolist()
+        ex = rng.integers(0, 4, exon + int(rng.integers(0, exon // 2))).tolist()
+        if n_at == "exon":
+            ex[int(rng.integers(0, len(ex)))] = 4
         genome.extend(ex)
         cdna.extend(c for c in ex if rng.random() > err * 0.5)
         if i != n_exons - 1:
-            ilen = intron + int(rng.integers(0, 60))
-            genome.extend([2, 3] + rng.integers(0, 4, ilen - 4).tolist()
-                          + [0, 2])
+            ilen = intron + int(rng.integers(0, intron // 2))
+            body = rng.integers(0, 4, ilen - 4).tolist()
+            if n_at == "intron":
+                body[len(body) // 2] = 4
+            genome.extend([4 if n_at == "donor" else 2, 3] + body
+                          + [0, 4 if n_at == "acceptor" else 2])
     return dict(qseq=np.array(cdna, dtype=np.uint8),
                 tseq=np.array(genome, dtype=np.uint8),
                 zdrop=int(rng.choice([200, 400])), end_bonus=-1, flag=flag,
                 w=-1)
 
 
+def _put_n(rng, seq, single=0.02, runs=1, run_len=(3, 20)):
+    """A copy of base codes `seq` with code 4 (an N, or an IUPAC code as
+    seq_nt4_table reads it) at about `single` of its bases and `runs`
+    runs of 4."""
+    out = seq.copy()
+    out[rng.random(len(out)) < single] = 4
+    for _ in range(runs):
+        n = min(int(rng.integers(*run_len)), len(out))
+        p = int(rng.integers(0, len(out) - n + 1))
+        out[p:p + n] = 4
+    return out
+
+
+def ambiguous_ksw_cases(max_len=300, n_ext=18, n_flags=4):
+    """(name, jobs, scoring, splice) whose sequences hold code 4: single
+    Ns and N runs in the query, the target or both on n_ext extd2 jobs of
+    ksw_cases' kind (targets of 20 to max_len bases) under map-ont and sr;
+    an N run inserted where it puts the path on the band's edge; all-N
+    queries and targets; spliced jobs (n_flags splice flags) with N at
+    every intron's donor or acceptor G, inside its introns and in its
+    exons. A few hundred bases a job at most, so that the plain versions
+    stay quick on the CPU (the Pallas kernel in interpret mode takes about
+    10 ms a row a job there: its tests take max_len 60)."""
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.options import set_opt
+
+    def gaps(preset, splice=False):
+        _, o = set_opt(preset)
+        return (o.q, o.e, o.q2, o.noncan if splice else o.e2, o.a, o.b)
+    cases = []
+    for seed, preset in ((11, "map-ont"), (12, "sr")):
+        rng = np.random.default_rng(seed)
+        jobs = _ext_jobs(rng, n_ext, (20, max_len))
+        for i, j in enumerate(jobs):
+            if i % 3 != 1:
+                j["qseq"] = _put_n(rng, j["qseq"])
+            if i % 3 != 0:
+                j["tseq"] = _put_n(rng, j["tseq"])
+        half = max_len // 3
+        for w in (10, 25):
+            # an N run of w - 2 bases inserted into the query: the path
+            # runs along the band's edge over the Ns
+            t = rng.integers(0, 4, 2 * half).astype(np.uint8)
+            q = np.concatenate([t[:half], np.full(w - 2, 4, np.uint8),
+                                t[half:]])
+            jobs.append(dict(qseq=q, tseq=t, w=w, zdrop=400, end_bonus=-1,
+                             flag=0))
+            # the Ns on the target, the path on the other edge
+            jobs.append(dict(qseq=t.copy(), tseq=q, w=w, zdrop=400,
+                             end_bonus=-1, flag=K.KSW_EZ_RIGHT))
+        for ql, tl in ((max_len // 8, max_len // 5), (1, 30)):
+            jobs.append(dict(qseq=np.full(ql, 4, np.uint8),
+                             tseq=rng.integers(0, 4, tl).astype(np.uint8),
+                             w=-1, zdrop=-1, end_bonus=0, flag=0))
+            jobs.append(dict(qseq=rng.integers(0, 4, tl).astype(np.uint8),
+                             tseq=np.full(ql + 5, 4, np.uint8), w=-1,
+                             zdrop=100, end_bonus=-1,
+                             flag=K.KSW_EZ_EXTZ_ONLY))
+        cases.append((f"extd2 {preset} with N", jobs, gaps(preset), False))
+    rng = np.random.default_rng(13)
+    sflags = (K.KSW_EZ_SPLICE_FOR,
+              K.KSW_EZ_SPLICE_REV,
+              K.KSW_EZ_SPLICE_FOR | K.KSW_EZ_SPLICE_FLANK,
+              K.KSW_EZ_SPLICE_FOR | K.KSW_EZ_RIGHT)[:n_flags]
+    jobs = [_spliced_job(rng, f, int(rng.integers(2, 4)), exon=max_len // 5,
+                         intron=2 * max_len // 5, n_at=where)
+            for where in ("donor", "acceptor", "intron", "exon")
+            for f in sflags]
+    for j in jobs[::3]:
+        j["qseq"] = _put_n(rng, j["qseq"], runs=0)
+    cases.append(("exts2 with N at donors, acceptors, introns, exons", jobs,
+                  gaps("splice", splice=True), True))
+    return cases
+
+
 def ksw_cases():
     """(name, jobs, scoring, splice) for the ksw kernel checks; scoring is
-    (q, e, q2, e2 or noncan, a, b) from the presets."""
+    (q, e, q2, e2 or noncan, a, b) from the presets. The last cases are
+    ambiguous_ksw_cases()."""
     from minimap2_chaindp_tpu_torch.ops import ksw2 as K
     from minimap2_chaindp_tpu_torch.options import set_opt
 
@@ -554,7 +654,8 @@ def ksw_cases():
         jobs.append(dict(qseq=_mutate_codes(rng, t, 0.06, 0.04), tseq=t,
                          w=500, zdrop=400, end_bonus=-1, flag=flag))
     cases.append(("extd2 64 x 10 kb w=500", jobs, ont, False))
-    return cases
+    # code 4 (N, IUPAC) in queries and targets: the score of N
+    return cases + ambiguous_ksw_cases()
 
 
 def ksw_inputs(jobs, scoring, splice, device):
@@ -986,24 +1087,27 @@ def _mutate(rng, s: str, err: float) -> str:
     return res.tobytes().decode()
 
 
-def _write_spliced(ref, out_ref, out_reads, seed=7):
-    """A copy of `ref` with GENES gene loci patched in (EXONS exons of
-    EXON_LEN bp, INTRON_LEN bp introns with GT..AG at their edges) and
-    TRANSCRIPTS cDNA reads from them (each gene's full transcript and one
+def _write_spliced(ref, out_ref, out_reads, seed=7, genes=GENES,
+                   transcripts=TRANSCRIPTS, intron_len=INTRON_LEN):
+    """A copy of `ref` with `genes` gene loci patched in (EXONS exons of
+    EXON_LEN bp, intron_len bp introns with GT..AG at their edges) and
+    `transcripts` cDNA reads from them (each gene's full transcript and one
     that skips an internal exon) at SPLICE_ERR error, half reverse
-    complemented. The tools/diff_sweep.py:86-120 idea at genome scale."""
+    complemented (case, N and IUPAC codes complemented as the reference
+    does). The tools/diff_sweep.py:86-120 idea at genome scale."""
     from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.utils.genome_synth import COMP
     rng = np.random.default_rng(seed)
     recs = [(r.name, bytearray(r.seq.encode())) for r in read_fastx(ref)]
-    per = -(-GENES // len(recs))
+    per = -(-genes // len(recs))
     loci = []
-    for g in range(GENES):
+    for g in range(genes):
         ci = g % len(recs)
         seq = recs[ci][1]
         slot = len(seq) // per
         n_ex = int(rng.integers(*EXONS))
         exl = rng.integers(*EXON_LEN, n_ex)
-        inl = rng.integers(*INTRON_LEN, n_ex - 1)
+        inl = rng.integers(*intron_len, n_ex - 1)
         pos = (g // len(recs)) * slot + int(
             rng.integers(0, slot - int(exl.sum() + inl.sum())))
         exons = []
@@ -1021,18 +1125,17 @@ def _write_spliced(ref, out_ref, out_reads, seed=7):
             f.write(f">{name}\n")
             for i in range(0, len(seq), 80):
                 f.write(seq[i:i + 80].decode() + "\n")
-    comp = str.maketrans("ACGT", "TGCA")
     with open(out_reads, "w") as f:
-        for t in range(TRANSCRIPTS):
-            ci, exons = loci[t % GENES]
-            if t >= GENES:   # the second transcript skips an internal exon
+        for t in range(transcripts):
+            ci, exons = loci[t % genes]
+            if t >= genes:   # the second transcript skips an internal exon
                 drop = int(rng.integers(1, len(exons) - 1))
                 exons = exons[:drop] + exons[drop + 1:]
             seq = recs[ci][1]
             s = _mutate(rng, b"".join(seq[a:b] for a, b in exons).decode(),
                         SPLICE_ERR)
             if rng.random() < 0.5:
-                s = s[::-1].translate(comp)
+                s = s[::-1].translate(COMP)
             f.write(f">tx{t}!{recs[ci][0]}!{exons[0][0]}\n{s}\n")
 
 
@@ -1040,9 +1143,9 @@ def _write_pairs(ref, out1, out2, seed=11):
     """PAIRS read pairs of PAIR_LEN bp in FR orientation from fragments of
     FRAG_LEN bp, at 1% substitutions and indels."""
     from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.utils.genome_synth import COMP
     rng = np.random.default_rng(seed)
     recs = [(r.name, r.seq) for r in read_fastx(ref)]
-    comp = str.maketrans("ACGT", "TGCA")
     with open(out1, "w") as f1, open(out2, "w") as f2:
         for i in range(PAIRS):
             name, seq = recs[int(rng.integers(0, len(recs)))]
@@ -1050,7 +1153,7 @@ def _write_pairs(ref, out1, out2, seed=11):
             st = int(rng.integers(0, len(seq) - fl))
             fr = seq[st:st + fl]
             r1 = _mutate(rng, fr[:PAIR_LEN], 0.01)
-            r2 = _mutate(rng, fr[-PAIR_LEN:], 0.01)[::-1].translate(comp)
+            r2 = _mutate(rng, fr[-PAIR_LEN:], 0.01)[::-1].translate(COMP)
             f1.write(f">pr{i}!{name}!{st}\n{r1}\n")
             f2.write(f">pr{i}!{name}!{st}\n{r2}\n")
 
@@ -1828,7 +1931,50 @@ OPTION_CASES = [
     ("preset-ava-pb", ["-x", "ava-pb"], "ovl"),
     ("preset-asm5", ["-x", "asm5", "-c"], "asm"),
     ("preset-sr", ["-x", "sr", "-a"], "sr"),
+    # the input edges of a human reference (tests/test_input_edges.py's
+    # four cases on synthetic input): a lowercase (soft-masked) query,
+    # IUPAC codes, a read with more output lines than the native text
+    # buffers' first 258 (-N 300 on a tandem repeat; its 6600 anchors
+    # keep it in the fused flow, so the native finish grows its buffers)
+    # and --MD on spliced alignments
+    ("lowercase-query", ["-a"], "lower"),
+    ("iupac-query", ["-a"], "iupac"),
+    ("many-lines-N300", ["-a", "-N", "300", "-p", "0.1"], "tandem"),
+    ("splice-MD", ["-ax", "splice", "--MD"], "splice"),
 ]
+# the tandem repeat: a unit of 60 random bases (seed 7), 300 copies in the
+# reference, the query two copies
+TANDEM_UNIT, TANDEM_COPIES, TANDEM_QUERY = 60, 300, 2
+
+
+def edge_queries(reads, d):
+    """The edge cases' inputs in directory `d`: {"lower": the reads at
+    `reads` lowercased, "iupac": the reads with an IUPAC code (RYSWKMBDHV
+    in turn) at 2% of their bases (seed 3), "iupac_n": the same with N at
+    those bases, "tandem": [the tandem reference, its query]}."""
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    recs = list(read_fastx(reads))
+    out = {k: os.path.join(d, f"edge_{k}.fa")
+           for k in ("lower", "iupac", "iupac_n", "tref", "tq")}
+    rng = np.random.default_rng(3)
+    with open(out["lower"], "w") as lo, open(out["iupac"], "w") as iu, \
+            open(out["iupac_n"], "w") as nn:
+        for r in recs:
+            lo.write(f">{r.name}\n{r.seq.lower()}\n")
+            si, sn = list(r.seq), list(r.seq)
+            for i, p in enumerate(np.flatnonzero(
+                    rng.random(len(r.seq)) < 0.02)):
+                si[p], sn[p] = "RYSWKMBDHV"[i % 10], "N"
+            iu.write(f">{r.name}\n{''.join(si)}\n")
+            nn.write(f">{r.name}\n{''.join(sn)}\n")
+    rng = np.random.default_rng(7)
+    unit = "".join("ACGT"[b] for b in rng.integers(0, 4, TANDEM_UNIT))
+    with open(out["tref"], "w") as f:
+        f.write(f">tand\n{unit * TANDEM_COPIES}\n")
+    with open(out["tq"], "w") as f:
+        f.write(f">q1\n{unit * TANDEM_QUERY}\n")
+    out["tandem"] = [out.pop("tref"), out.pop("tq")]
+    return out
 
 
 def _p10_inputs():
@@ -2005,8 +2151,10 @@ def _p10_options():
     o = _cached(os.path.join(SMOKE_DIR, "p10_opt_ovl.fa"), ovl)
     spl = [os.path.join(ROOT, "tests", "data", f)
            for f in ("splice_genome.fa", "splice_cdna.fa")]
+    edge = edge_queries(r, SMOKE_DIR)
     files = {"r": [g, r], "sr": [g, sr], "ovl": [o, o], "asm": [g, asm],
-             "splice": spl}
+             "splice": spl, "lower": [g, edge["lower"]],
+             "iupac": [g, edge["iupac"]], "tandem": edge["tandem"]}
 
     def run(args):
         out, err = _io.StringIO(), _io.StringIO()
@@ -2359,6 +2507,261 @@ def phase_genome(inputs=None):
                 nbytes=nbytes)
 
 
+# --------------------------------------------------------------- phase 12
+# the inputs a human reference has (PERF.md §4): phase 4's 250 Mbp genome
+# masked (utils/genome_synth.mask_genome: about half its bases lowercased in
+# runs, 10 kb N gaps at each contig's ends, 50 kb inside it, three of 100
+# bp, eight IUPAC codes a contig) with phase 5's GENES gene loci patched in;
+# P12_READS reads of 10 kb at 10% (P12_EDGE_READS of them across the gaps'
+# edges) with single Ns, IUPAC codes, N runs and lowercase stretches
+# (P12_READ_EDGES, transform_reads) under map-ont; P12_PAIRS pairs with
+# about 0.5% N under -x sr; P12_TX transcripts of the masked loci with
+# Ns under -x splice --MD. Made by a process of its own during phases
+# 5-11 (_p12_start).
+P12_MASK_SEED = 12
+P12_READS = (1000, 10_000, 0.10, 25)       # reads, length, error, seed
+P12_EDGE_READS = 100
+P12_READ_EDGES = dict(n_rate=0.001, iupac_rate=0.0002, run_rate=0.1,
+                      lower_rate=0.3)
+P12_PAIRS = (5000, 0.005, 27)              # pairs, N rate, seed
+# one full transcript a gene, cut from phase 5's 2000 (the phase took
+# 259.3 s with them, 180.5 s with 1000). Most of it is the check of the
+# splice run's largest extension launch against the plain version (127.5
+# s: its longest job has 15322 rows); with 500 transcripts that launch
+# is the same 2945 jobs
+P12_TX = (1000, 0.001, 29)                 # transcripts, N rate, seed
+
+
+def _p12_inputs(ref, report=False):
+    """Phase 12's genome and reads from phase 4's genome `ref`, cached in
+    SMOKE_DIR: {"ref": the masked genome with the gene loci, "ont": reads,
+    "pairs": [read 1, read 2], "tx": transcripts}."""
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    t0 = time.perf_counter()
+    path = lambda name: os.path.join(SMOKE_DIR, f"p12_{name}")
+    base = os.path.basename(ref).rsplit(".", 1)[0]
+    masked = _cached(path(f"{base}_m{P12_MASK_SEED}.fa"),
+                     lambda p: G.mask_genome(ref, p, seed=P12_MASK_SEED))
+    n_tx, tx_n, tx_seed = P12_TX
+    g12, tx0 = path(f"{base}_m{P12_MASK_SEED}_genes.fa"), path(f"tx{n_tx}.fa")
+    _cached(g12, lambda p, q: _write_spliced(masked, p, q,
+                                             transcripts=n_tx), tx0)
+    tx = _cached(path(f"tx{n_tx}_n.fa"), lambda p: G.transform_reads(
+        tx0, p, tx_seed, n_rate=tx_n))
+    n, ln, err, seed = P12_READS
+
+    def ont(p):
+        G.simulate(g12, p + ".sim", n - P12_EDGE_READS, ln, err, seed=seed)
+        G.edge_reads(g12, p + ".edge", ln, err, seed + 1, n=P12_EDGE_READS)
+        with open(p + ".all", "w") as f:
+            for part in (".sim", ".edge"):
+                with open(p + part) as g:
+                    f.write(g.read())
+                os.remove(p + part)
+        G.transform_reads(p + ".all", p, seed + 2, **P12_READ_EDGES)
+        os.remove(p + ".all")
+    reads = _cached(path(f"ont{n}x{ln}.fa"), ont)
+    n_pe, pe_n, pe_seed = P12_PAIRS
+
+    def pairs(p1, p2):
+        G.simulate_pairs(g12, p1 + ".raw", p2 + ".raw", n_pe, seed=pe_seed)
+        for i, p in enumerate((p1, p2)):
+            G.transform_reads(p + ".raw", p, pe_seed + 1 + i, n_rate=pe_n)
+            os.remove(p + ".raw")
+    pe = [path(f"pe{n_pe}_{i}.fq") for i in (1, 2)]
+    _cached(pe[0], pairs, pe[1])
+    if report:
+        log(f"phase 12 inputs made in {time.perf_counter() - t0:.1f} s")
+    return dict(ref=g12, ont=reads, pairs=pe, tx=tx)
+
+
+def _p12_start(ref):
+    """Start making phase 12's inputs in a process of its own (spawn);
+    phase_masked joins it, main() stops it."""
+    import multiprocessing as mp
+    p = mp.get_context("spawn").Process(
+        target=_p12_inputs, args=(ref,), kwargs=dict(report=True),
+        name="smoke-p12")
+    p.start()
+    return p
+
+
+def _check_kept_n(label, kept, seen, phase=12):
+    """The kept launch with the most DP cells among those with a code-4
+    base, against the plain versions (comparison launches, not counted);
+    None where the run launched none. An input already checked keeps
+    that check."""
+    if kept.ksw_n is None:
+        return None
+    _cells, jobs, splice, noncan = kept.ksw_n
+    n4 = sum(1 for j in jobs if (j["qseq"] == 4).any()
+             or (j["tseq"] == 4).any())
+    d = _digest((jobs, kept.scoring[splice], splice, noncan))
+    if d not in seen:
+        pk, ts, kw = packed_ksw_inputs(jobs, kept.scoring[splice], splice,
+                                       noncan, "cuda")
+        seen[d] = (label, compare_ksw(
+            f"{label} code-4 input ({len(jobs)} jobs, {n4} with code 4)",
+            pk, ts, kw, reps=3, phase=phase))
+    else:
+        log(f"phase {phase} {label} code-4 input ({n4} jobs with code 4): "
+            f"the same input as {seen[d][0]}, whose check stands")
+    return dict(seen[d][1], jobs_with_n=n4, jobs=len(jobs))
+
+
+def _p12_indexes(ref):
+    """The map-ont, sr and splice indexes of `ref`, each built with the
+    pair sort on the card: {preset: (mi, mo, build seconds)}, and the
+    FASTA read's seconds."""
+    import torch
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import read_fastx
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    t0 = time.perf_counter()
+    names, seqs = [], []
+    for r in read_fastx(ref):
+        names.append(r.name)
+        seqs.append(C.seq_to_nt4(r.seq))
+    t_read = time.perf_counter() - t0
+    out = {}
+    for preset in ("map-ont", "sr", "splice"):
+        io, mo = set_opt(preset)
+        mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR          # -a
+        if preset == "splice":
+            mo.flag |= C.MM_F_OUT_MD                      # --MD
+        t0 = time.perf_counter()
+        # (the build empties the list it is given as it copies it)
+        mi = build_index(names, list(seqs), io.w, io.k, io.flag,
+                         io.bucket_bits, n_threads=os.cpu_count() or 1,
+                         device="cuda")
+        torch.cuda.synchronize()
+        mo.update(mi)
+        out[preset] = (mi, mo, time.perf_counter() - t0)
+    return out, t_read
+
+
+def phase_masked(inputs=None, ref=None):
+    """Phase 12: phase 4's genome masked and N-gapped, its map-ont, sr and
+    splice indexes built on the card, each input mapped by HostRuntime
+    and by TorchRuntime under the device and steal routings at -t
+    THREADS, byte-identical, each run's launches counted from 0 and its
+    largest kernel inputs, and its largest extension launch with a code-4
+    base, held against the plain versions. `inputs` is the process of
+    _p12_start, joined first; `ref` phase 4's genome (made here when
+    None)."""
+    import gc
+    import torch
+    from minimap2_chaindp_tpu_torch.io.fastx import read_frags
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    from minimap2_chaindp_tpu_torch.ops import seeds_device as SD
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    from minimap2_chaindp_tpu_torch.utils import kernel_inputs as KI
+    t_phase = time.perf_counter()
+    if ref is None:
+        ref = _cached(os.path.join(
+            SMOKE_DIR, f"genome_{CONTIGS}x{CONTIG_LEN}_s42.fa"),
+            lambda p: G.make_genome(p, n_contigs=CONTIGS,
+                                    contig_len=CONTIG_LEN, seed=42))
+    t0 = time.perf_counter()
+    if inputs is not None:
+        inputs.join()
+        check(inputs.exitcode == 0, "phase 12: making the inputs failed "
+              f"(exit code {inputs.exitcode})")
+    paths = _p12_inputs(ref)
+    t_inputs = time.perf_counter() - t0
+    idx, t_read = _p12_indexes(paths["ref"])
+    log(f"phase 12 inputs ({t_inputs:.1f} s in this phase), FASTA read "
+        f"{t_read:.1f} s; indexes built on the card: " + ", ".join(
+            f"{p} {len(mi.keys)} keys {len(mi.values)} positions "
+            f"{t:.1f} s" for p, (mi, _mo, t) in idx.items()))
+    n_reads, read_len, _err, _seed = P12_READS
+    work = {
+        "ont": ("map-ont", [paths["ont"]], LANE_BATCH_READS * read_len),
+        "sr": ("sr", paths["pairs"], None),
+        "splice": ("splice", [paths["tx"]], None)}
+    runs, checks, seen = {}, {}, {}
+    for kind, (preset, files, batch_bases) in work.items():
+        mi, mo, _t = idx[preset]
+        if batch_bases is not None:
+            mo.mini_batch_size = batch_bases
+        batches = list(read_frags(files, mo.mini_batch_size, False))
+        frags = [f for b in batches for f in b]
+        n = len(frags)
+        n4 = sum(1 for f in frags for sg in f.segs
+                 if set(sg.seq) - set("ACGTacgt"))
+        host = HostRuntime(mi, mo, n_threads=THREADS)
+        host.map_batch(frags[:16])
+        t0 = time.perf_counter()
+        want = [ls for b in host.map_stream(batches) for ls in b]
+        t_host = time.perf_counter() - t0
+        host.close()
+        for routing in ("device", "steal"):
+            label = f"{kind}_{routing}"
+            rt = TorchRuntime(mi, mo, device="cuda", n_threads=THREADS,
+                              routing=routing)
+            rt.map_batch(frags[:16])
+            torch.cuda.synchronize()
+            for d in (rt.timers.acc, rt.timers.n, rt.timers.counters):
+                d.clear()
+            _reset_launches()
+            with KI.record() as kept:
+                t0 = time.perf_counter()
+                got = [ls for b in rt.map_stream(batches) for ls in b]
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            launches = _read_launches()
+            rt.close()
+            n_diff = sum(a != b for a, b in zip(got, want))
+            check(len(got) == len(want) == n and n_diff == 0,
+                  f"phase 12 {label}: {n_diff} fragments' SAM lines differ "
+                  "from HostRuntime")
+            c = {k: rt.timers.counters.get(k, 0) for k in P11_COUNTERS}
+            share = (c["device_reads"] + c["staged_device_reads"]) / n
+            log(f"phase 12 {label}: {sum(map(len, got))} records for {n} "
+                f"fragments ({n4} reads with N or an IUPAC code), "
+                f"byte-identical to HostRuntime; {n / dt:.1f} a second "
+                f"({dt:.2f} s) against HostRuntime {n / t_host:.1f} "
+                f"({t_host:.2f} s), -t {THREADS}; chain device share "
+                f"{share:.1%}; " + " ".join(f"{k}={v}" for k, v in c.items())
+                + f"; launches chain {launches['chain']}, ksw2 "
+                f"{launches['ksw']}, walk {launches['walk']}")
+            if kind == "ont" and routing == "device":
+                check(share >= 0.9, f"phase 12 {label}: the chain kernel "
+                      f"chained {share:.1%} of the reads (< 90%)")
+            t0 = time.perf_counter()
+            chain, ksw = _p10_check_kept(label, kept, seen, phase=12)
+            ksw_n = _check_kept_n(label, kept, seen)
+            check((ksw_n is not None) <= (launches["ksw"] > 0),
+                  f"phase 12 {label}: a code-4 input kept with no launch")
+            checks[label] = (chain, ksw, ksw_n)
+            runs[label] = dict(rate=n / dt, host_rate=n / t_host,
+                               counters=c, share=share, launches=launches,
+                               check_s=time.perf_counter() - t0)
+            del rt, kept, got
+        del want, frags, batches
+    for mi, _mo, _t in idx.values():
+        SD.release_device_index(mi, "cuda")
+    del idx
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_code4 = sum(k is not None for _c, _k, k in checks.values())
+    check(n_code4 > 0, "phase 12: no extension launch on the card held a "
+          "code-4 base")
+    check(runs["ont_device"]["launches"]["chain"] > 0
+          and runs["splice_device"]["launches"]["ksw"] > 0
+          and runs["sr_device"]["launches"]["ksw"] > 0,
+          "phase 12: a device run launched none of its kernels")
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in ("chain", "ksw", "walk")}
+    secs = time.perf_counter() - t_phase
+    log(f"phase 12 done in {secs:.1f} s; launches {launches}; {n_code4} "
+        "runs' code-4 extension launches bit-exact; checks "
+        + ", ".join(f"{k} {r['check_s']:.1f} s" for k, r in runs.items()))
+    return dict(launches=launches, runs=runs, checks=checks, secs=secs)
+
+
 def phase7_turns(parent: str):
     """Phase 7's stealing runs on phase 4's reads and phase 6's pairs, and
     on phase 11's reads against its 3 Gbp index, in this tree and in
@@ -2505,13 +2908,14 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     t_all = time.perf_counter()
-    p11_inputs = None
+    p11_inputs = p12_inputs = None
     try:
         p11_inputs = _p11_start()
         card = phase_env()
         build_s = phase_build()
         worst, bench = phase_kernels()
         e2e = phase_e2e()
+        p12_inputs = _p12_start(e2e["ref"])
         spl = phase_splice(e2e["ref"])
         pe = phase_paired(e2e["ref"])
         phase_lanes(e2e, spl, pe)
@@ -2519,14 +2923,16 @@ def main() -> int:
         bench9 = phase_bench()
         p10 = phase_presets()
         p11 = phase_genome(p11_inputs)
+        p12 = phase_masked(p12_inputs, e2e["ref"])
     except Exception:
         traceback.print_exc()
         print("[smoke] FAILED", file=sys.stderr)
         return 1
     finally:
-        if p11_inputs is not None and p11_inputs.is_alive():
-            p11_inputs.terminate()
-            p11_inputs.join()
+        for proc in (p11_inputs, p12_inputs):
+            if proc is not None and proc.is_alive():
+                proc.terminate()
+                proc.join()
     log(f"done in {time.perf_counter() - t_all:.1f} s on {card}; "
         f"build {build_s:.2f} s")
     err = max(worst, spl["err"], pe["err"])
@@ -2540,20 +2946,32 @@ def main() -> int:
                p11["checks"].items() for mode, r in ch.items()}
     ksw11 = {label: k for label, (_ch, k) in p11["checks"].items()
              if k is not None}
+    n12 = p12["launches"]
+    chain12 = {f"{label}_{mode}": r for label, (ch, _k, _n) in
+               p12["checks"].items() for mode, r in ch.items()}
+    ksw12 = {label: k for label, (_ch, k, _n) in p12["checks"].items()
+             if k is not None}
+    ksw12.update({f"{label}_code4": k for label, (_ch, _k, k)
+                  in p12["checks"].items() if k is not None})
+    chain_keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by", "form",
+                  "anchors")
+    ksw_keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {"name": "chain_dp", "route": "cuda", "source": CHAIN_SOURCE,
          "replaces": CHAIN_REPLACES,
          "launches": e2e["launches"] + spl["chain"] + pe["chain"]
          + rest["launches"] + bench9["launches"]["chain"] + n10["chain"]
-         + n11["chain"],
+         + n11["chain"] + n12["chain"],
          "launches_phase9": bench9["launches"]["chain"],
          "launches_phase10": n10["chain"],
          "launches_phase11": n11["chain"],
+         "launches_phase12": n12["chain"],
          "max_abs_err": max(worst, e2e["err"], spl["chain_err"],
                             pe["chain_err"], rest["meshes"]["res"]["err"],
                             *(r["err"] for r in bench9["chain"].values()),
                             *(r["err"] for r in chain10.values()),
-                            *(r["err"] for r in chain11.values())),
+                            *(r["err"] for r in chain11.values()),
+                            *(r["err"] for r in chain12.values())),
          "ms": e2e["ms"],
          "plain_ms": e2e["plain_ms"], "bound_ms": e2e["bound_ms"],
          "bound_by": e2e["bound_by"], "library_ms": None,
@@ -2578,18 +2996,21 @@ def main() -> int:
                                    "bound_by", "form", "anchors")}
              for k, r in chain10.items()},
          "checks_phase11": {
-             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "form", "anchors")}
-             for k, r in chain11.items()}},
+             k: {f: r[f] for f in chain_keys} for k, r in chain11.items()},
+         "checks_phase12": {
+             k: {f: r[f] for f in chain_keys}
+             for k, r in chain12.items()}},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,
          "replaces": KSW_REPLACES,
          "launches": spl["ksw"] + pe["ksw"] + bench9["launches"]["ksw"]
-         + n10["ksw"] + n11["ksw"],
+         + n10["ksw"] + n11["ksw"] + n12["ksw"],
          "launches_phase9": bench9["launches"]["ksw"],
          "launches_phase10": n10["ksw"],
          "launches_phase11": n11["ksw"],
+         "launches_phase12": n12["ksw"],
          "max_abs_err": max(err, *(r["err"] for r in [
-             *bench9["ksw"].values(), *ksw10.values(), *ksw11.values()])),
+             *bench9["ksw"].values(), *ksw10.values(), *ksw11.values(),
+             *ksw12.values()])),
          "ms": spl["ms"], "plain_ms": spl["plain_ms"],
          "bound_ms": spl["bound_ms"], "bound_by": spl["bound_by"],
          "library_ms": None, "step_ns": spl["step_ns"],
@@ -2609,18 +3030,23 @@ def main() -> int:
                                    "bound_by")}
              for k, r in ksw10.items()},
          "checks_phase11": {
-             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by")}
-             for k, r in ksw11.items()}},
+             k: {f: r[f] for f in ksw_keys} for k, r in ksw11.items()},
+         "checks_phase12": {
+             k: {**{f: r[f] for f in ksw_keys},
+                 **({"jobs": r["jobs"], "jobs_with_n": r["jobs_with_n"]}
+                    if "jobs_with_n" in r else {})}
+             for k, r in ksw12.items()}},
         {"name": "ksw2_walk", "route": "cuda", "source": KSW_SOURCE,
          "replaces": WALK_REPLACES,
          "launches": spl["walk"] + pe["walk"] + bench9["launches"]["walk"]
-         + n10["walk"] + n11["walk"],
+         + n10["walk"] + n11["walk"] + n12["walk"],
          "launches_phase9": bench9["launches"]["walk"],
          "launches_phase10": n10["walk"],
          "launches_phase11": n11["walk"],
+         "launches_phase12": n12["walk"],
          "max_abs_err": max(err, *(r["err"] for r in [
-             *bench9["ksw"].values(), *ksw10.values(), *ksw11.values()])),
+             *bench9["ksw"].values(), *ksw10.values(), *ksw11.values(),
+             *ksw12.values()])),
          "ms": spl["walk_ms"],
          "plain_ms": spl["walk_plain_ms"],
          "bound_ms": spl["walk_bound_ms"],
@@ -2642,7 +3068,12 @@ def main() -> int:
                                 "plain_ms": r["walk_plain_ms"],
                                 "bound_ms": r["walk_bound_ms"],
                                 "bound_by": r["walk_bound_by"]}
-                            for k, r in ksw11.items()}}]}))
+                            for k, r in ksw11.items()},
+         "checks_phase12": {k: {"err": r["err"], "ms": r["walk_ms"],
+                                "plain_ms": r["walk_plain_ms"],
+                                "bound_ms": r["walk_bound_ms"],
+                                "bound_by": r["walk_bound_by"]}
+                            for k, r in ksw12.items()}}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,7 +13,10 @@ its flow row, each of which runs in a process of its own).
 mode (single, many_segs, cdna), the input with the most anchor slots; it
 wraps ops/ksw2_ext.pack_jobs and _batch_async and keeps the extension
 launch with the most DP cells: its jobs, mode and the forward wrapper's
-scoring. The wrappers themselves and their launch counts are untouched.
+scoring; and, apart (`ksw_n`, in memory only: save() writes the other
+two), the launch with the most DP cells among those holding base code 4
+(an N, or an IUPAC code as seq_nt4_table reads it) in a query or target.
+The wrappers themselves and their launch counts are untouched.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ class Recorder:
     def __init__(self):
         self.chain: dict[str, tuple] = {}   # mode -> (slots, args, kw)
         self.ksw = None                     # (cells, jobs, splice, noncan)
+        self.ksw_n = None                   # the same, with a code 4
         self.scoring: dict[bool, tuple] = {}   # splice -> forward scoring
         self._lock = threading.Lock()
 
@@ -78,9 +82,13 @@ def record():
         pk = real_pack(jobs, splice=splice, noncan=noncan)
         cells = int((pk["meta"][:, 0].astype(np.int64)
                      * pk["meta"][:, 1]).sum())
+        has_n = any((j["qseq"] == 4).any() or (j["tseq"] == 4).any()
+                    for j in jobs)
         with rec._lock:
             if rec.ksw is None or cells > rec.ksw[0]:
                 rec.ksw = (cells, list(jobs), splice, noncan)
+            if has_n and (rec.ksw_n is None or cells > rec.ksw_n[0]):
+                rec.ksw_n = (cells, list(jobs), splice, noncan)
         return pk
 
     def batch(jobs, mat, gaps, *, splice, noncan, device):

@@ -22,7 +22,7 @@ from minimap2_chaindp_tpu_torch.utils import genome_synth as G
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import OPTION_CASES  # noqa: E402
+from chip_smoke import OPTION_CASES, edge_queries  # noqa: E402
 
 PORT, JAX = "minimap2_chaindp_tpu_torch.cli", "minimap2_chaindp_tpu.cli"
 SPLICE = [os.path.join(ROOT, "tests", "data", f)
@@ -36,7 +36,9 @@ def make_inputs(d):
     this size), 40 x 150 bp at 1%, 6 x 1 kb reads at 2% from 3 kb of it
     (60-63 kb of the first contig, clear of its repeats), which overlap
     each other (for the self-mapping cases, as q-inv.fa against itself in
-    the reference's tests), and 3 contigs of 3 kb at 0.1% divergence."""
+    the reference's tests), and 3 contigs of 3 kb at 0.1% divergence; and
+    chip_smoke.edge_queries' inputs from the reads: "lower", "iupac",
+    "iupac_n", "tandem"."""
     paths = {k: os.path.join(d, f"{k}.fa") for k in ("g", "r", "sr", "head",
                                                       "ovl", "asm")}
     if not os.path.exists(paths["asm"]):
@@ -48,6 +50,7 @@ def make_inputs(d):
         G.simulate(paths["head"], paths["ovl"], 6, 1000, 0.02, seed=87)
         G.simulate(paths["g"], paths["sr"], 40, 150, 0.01, seed=91)
         G.simulate(paths["g"], paths["asm"], 3, 3000, 0.001, seed=89)
+    paths.update(edge_queries(paths["r"], d))
     return paths
 
 
@@ -56,7 +59,10 @@ def files(inputs, queries):
     return {"r": [inputs["g"], inputs["r"]],
             "sr": [inputs["g"], inputs["sr"]],
             "ovl": [inputs["ovl"], inputs["ovl"]],
-            "asm": [inputs["g"], inputs["asm"]], "splice": SPLICE}[queries]
+            "asm": [inputs["g"], inputs["asm"]], "splice": SPLICE,
+            "lower": [inputs["g"], inputs["lower"]],
+            "iupac": [inputs["g"], inputs["iupac"]],
+            "tandem": inputs["tandem"]}[queries]
 
 
 def cases(ids):
@@ -120,10 +126,12 @@ def test_option_matches_jax_cli(inputs, request, opts, qry):
 
 def test_every_option_case_is_run():
     """Each case of the shared list is run by exactly one of the option
-    test files, so the CPU runs and the card's cover the same cases."""
+    test files (and tests/test_torch_edges.py), so the CPU runs and the
+    card's cover the same cases."""
+    import test_torch_edges as edges
     import test_torch_options_output as out
     import test_torch_options_presets as pre
-    ids = [*COUNTER, *out.IDS, *pre.IDS]
+    ids = [*COUNTER, *out.IDS, *pre.IDS, *edges.IDS]
     assert sorted(ids) == sorted(name for name, _o, _q in OPTION_CASES)
 
 
