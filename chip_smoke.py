@@ -104,6 +104,9 @@ Phases, each printing its own lines:
      map-ont reads chained by the kernel; each run's largest kernel
      inputs and its largest extension launch with a code-4 base held
      against the plain versions, at least one such launch required.
+`plain_turns(parent)` runs main() with every ksw2 check also run through
+the plain versions of another checkout, held equal to this tree's and
+timed beside them (PERF.md §6).
 `phase7_turns(parent)` is not run by main(): it holds the stealing
 lane's repairs against another checkout of the repo (phase 7's steal runs
 on phase 4's reads and phase 6's pairs, cold and warm, parent and this
@@ -123,6 +126,10 @@ opt_<case>; checks_phase11 by routing and mode; checks_phase12 by input
 and routing, the code-4 launches as <input>_<routing>_code4). A mesh's other ranks
 are processes of their own, but in a 1 x I mesh rank 0 runs every chain (the index-0
 rank of a data row chains it, models/device_pipeline.py).
+Before the last two lines, a JSON line {"timing": ...} gives each
+phase's wall seconds (phase_s) and the seconds of the plain versions'
+comparison runs by phase (plain_s: chain, ksw_forward, ksw_walk) and
+summed (plain_total_s).
 The second-to-last line is the kernels' JSON record, the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 
@@ -228,6 +235,66 @@ BENCH_TIMEOUT_S = 600
 
 class SmokeFailure(Exception):
     pass
+
+
+# the phase running, each phase's wall seconds, and the seconds of the
+# plain versions' comparison runs (compare_kernel's plain_ms, compare_ksw's
+# plain_ms and walk_plain_ms) by phase: the timing line before the kernels
+# line
+TIMING = {"phase": "setup", "phase_s": {}, "plain_s": {}}
+
+
+def run_phase(label, fn, *args):
+    """fn(*args) as phase `label`, its wall seconds kept in TIMING."""
+    TIMING["phase"] = label
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        TIMING["phase_s"][label] = time.perf_counter() - t
+
+
+def _plain_took(kind, ms):
+    by = TIMING["plain_s"].setdefault(TIMING["phase"], {})
+    by[kind] = by.get(kind, 0.0) + ms / 1e3
+
+
+# the plain ksw2 versions (ops/ksw2_ext.py) of another checkout of the
+# repo, which every ksw2 check also runs and holds against this tree's
+# (set by plain_turns; None when the smoke runs as the script)
+PLAIN_PARENT = None
+
+
+def plain_turns(parent: str) -> int:
+    """The smoke (main()) with every ksw2 check also run through the plain
+    forward and walk of `parent`, another checkout of the repo, on the
+    same card tensors right after this tree's: their p bytes, ez rows,
+    step codes and fin (i, j, k) must be equal, and both times go into
+    the timing line (ksw_forward_parent, ksw_walk_parent). The parent's
+    module is loaded beside this tree's, its imports resolved in this
+    tree's package."""
+    global PLAIN_PARENT
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "minimap2_chaindp_tpu_torch.ops._parent_ksw2_ext",
+        os.path.join(os.path.abspath(parent), "minimap2_chaindp_tpu_torch",
+                     "ops", "ksw2_ext.py"))
+    PLAIN_PARENT = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(PLAIN_PARENT)
+    return main()
+
+
+def timing_record(total_s):
+    """The timing line: each phase's wall seconds, and the plain checks'
+    seconds by phase and summed by kind and over this tree's kinds."""
+    kinds = {}
+    for by in TIMING["plain_s"].values():
+        for kind, sec in by.items():
+            kinds[kind] = kinds.get(kind, 0.0) + sec
+    mine = sum(v for k, v in kinds.items() if not k.endswith("_parent"))
+    return {"timing": {"total_s": total_s, "phase_s": TIMING["phase_s"],
+                       "plain_s": TIMING["plain_s"],
+                       "plain_total_s": dict(kinds, all=mine)}}
 
 
 def log(msg: str) -> None:
@@ -420,6 +487,7 @@ def compare_kernel(name, ts, kw, reps=20, phase=3):
     check(fn.launches == before[0] + 1 and len(planned) == 1,
           f"{name}: the launch counters did not move with the launch")
     want, plain_ms = _timed(lambda: TD.chain_scores_batch_ref(*ts, **kw))
+    _plain_took("chain", plain_ms)
 
     def same(out, what):
         err = max(int((g.long() - w.long()).abs().max())
@@ -803,12 +871,31 @@ def compare_ksw(name, pk, ts, kw, reps=5, phase=3):
               + planned.count(v) for v in KPK.VARIANTS)
           and KE.ksw_walk.launches == before[1] + 1,
           f"{name}: the launch counters did not move with the launches")
-    (_p_ref, ez_ref), plain_ms = _timed(
+    (p_ref, ez_ref), plain_ms = _timed(
         lambda: KE.ksw_forward_ref(*args[:5], **{
             k: v for k, v in kw.items() if k != "groups"}))
     ez_wr = ez.clone()
     ops_ref, walk_plain = _timed(lambda: KE.ksw_walk_ref(
         p, ts["poff"], ts["meta"], ez_wr, **wkw))
+    _plain_took("ksw_forward", plain_ms)
+    _plain_took("ksw_walk", walk_plain)
+    if PLAIN_PARENT is not None:
+        PK = PLAIN_PARENT
+        (p_par, ez_par), par_ms = _timed(lambda: PK.ksw_forward_ref(
+            *args[:5], **{k: v for k, v in kw.items() if k != "groups"}))
+        ez_parw = ez.clone()
+        ops_par, par_walk = _timed(lambda: PK.ksw_walk_ref(
+            p, ts["poff"], ts["meta"], ez_parw, **wkw))
+        check(torch.equal(p_par, p_ref) and torch.equal(ez_par, ez_ref)
+              and torch.equal(ez_parw, ez_wr)
+              and torch.equal(ops_par, ops_ref),
+              f"{name}: the plain versions of {PK.__file__} and of this "
+              "tree differ")
+        _plain_took("ksw_forward_parent", par_ms)
+        _plain_took("ksw_walk_parent", par_walk)
+        log(f"phase {phase} ksw {name}: plain forward {plain_ms:.1f} ms, "
+            f"walk {walk_plain:.1f} ms; {PK.__file__}'s {par_ms:.1f} and "
+            f"{par_walk:.1f} ms, equal p, ez, step codes and fin")
     err = int((ez.long() - ez_ref.long()).abs().max())
     check(torch.equal(ez, ez_ref), f"{name}: kernel ez rows differ from "
           f"the plain version (max abs err {err})")
@@ -2911,19 +2998,19 @@ def main() -> int:
     p11_inputs = p12_inputs = None
     try:
         p11_inputs = _p11_start()
-        card = phase_env()
-        build_s = phase_build()
-        worst, bench = phase_kernels()
-        e2e = phase_e2e()
+        card = run_phase("1", phase_env)
+        build_s = run_phase("2", phase_build)
+        worst, bench = run_phase("3", phase_kernels)
+        e2e = run_phase("4", phase_e2e)
         p12_inputs = _p12_start(e2e["ref"])
-        spl = phase_splice(e2e["ref"])
-        pe = phase_paired(e2e["ref"])
-        phase_lanes(e2e, spl, pe)
-        rest = phase_rest(e2e)
-        bench9 = phase_bench()
-        p10 = phase_presets()
-        p11 = phase_genome(p11_inputs)
-        p12 = phase_masked(p12_inputs, e2e["ref"])
+        spl = run_phase("5", phase_splice, e2e["ref"])
+        pe = run_phase("6", phase_paired, e2e["ref"])
+        run_phase("7", phase_lanes, e2e, spl, pe)
+        rest = run_phase("8", phase_rest, e2e)
+        bench9 = run_phase("9", phase_bench)
+        p10 = run_phase("10", phase_presets)
+        p11 = run_phase("11", phase_genome, p11_inputs)
+        p12 = run_phase("12", phase_masked, p12_inputs, e2e["ref"])
     except Exception:
         traceback.print_exc()
         print("[smoke] FAILED", file=sys.stderr)
@@ -2933,8 +3020,8 @@ def main() -> int:
             if proc is not None and proc.is_alive():
                 proc.terminate()
                 proc.join()
-    log(f"done in {time.perf_counter() - t_all:.1f} s on {card}; "
-        f"build {build_s:.2f} s")
+    total_s = time.perf_counter() - t_all
+    log(f"done in {total_s:.1f} s on {card}; build {build_s:.2f} s")
     err = max(worst, spl["err"], pe["err"])
     n10 = p10["launches"]
     chain10 = {f"{label}_{mode}": r for label, (ch, _k) in
@@ -2956,6 +3043,7 @@ def main() -> int:
     chain_keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by", "form",
                   "anchors")
     ksw_keys = ("err", "ms", "plain_ms", "bound_ms", "bound_by")
+    print(json.dumps(timing_record(total_s)), flush=True)
     print(json.dumps({"kernels": [
         {"name": "chain_dp", "route": "cuda", "source": CHAIN_SOURCE,
          "replaces": CHAIN_REPLACES,

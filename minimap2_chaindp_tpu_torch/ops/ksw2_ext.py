@@ -33,7 +33,7 @@ from .ksw2_pack import (C_FIN_I, C_FIN_J, C_FIN_K, C_MAX, C_MAX_Q, C_MAX_T,
                         EZ_COLS, M_ADROP, M_APPROX, M_ENDB, M_EXTZ, M_NCOL,
                         M_OPOFF, M_QLEN, M_QOFF, M_RIGHT, M_SCONLY, M_TLEN,
                         M_TOFF, M_W, M_ZDROP, _decode_walk, _ez_from_row,
-                        gap_params, pack_jobs, split_by_budget)
+                        gap_params, n_col_of, pack_jobs, split_by_budget)
 
 P_BUDGET = 2 << 30      # backtrack bytes per forward launch
 # pack_jobs' arrays that go to the device, in the wrappers' argument order
@@ -157,8 +157,7 @@ def _w8(x):
 def _band(r, qlen, tlen, w, splice):
     """Live and 16-aligned band of diagonal r (ksw2_pallas.py:70-81)."""
     st0 = torch.clamp(r - qlen + 1, min=0)
-    en0 = torch.minimum(tlen - 1, r if torch.is_tensor(r)
-                        else torch.full_like(tlen, r))
+    en0 = torch.minimum(tlen - 1, r)
     if not splice:
         st0 = torch.maximum(st0, (r - w + 1) >> 1)
         en0 = torch.minimum(en0, (r + w) >> 1)
@@ -166,26 +165,105 @@ def _band(r, qlen, tlen, w, splice):
 
 
 def _f_seed(r, scoring, splice):
+    """The seed of row r's first lane (r a 0-dim tensor)."""
     q, e, _q2, e2, _m, _mis, _n, long_thres, long_diff = scoring
-    if r == 0:
-        return -(q + e)
-    if r < long_thres:
-        return -e
-    if r == long_thres:
-        return long_diff
-    return 0 if splice else -e2
+    f = torch.full_like(r, 0 if splice else -e2)
+    f = torch.where(r == long_thres, long_diff, f)
+    f = torch.where(r < long_thres, -e, f)
+    return torch.where(r == 0, -(q + e), f)
+
+
+def _live_order(steps_of, steps, widths=None):
+    """The jobs longest first, from each job's step count `steps_of` (host
+    int64): (order, live, band) where live[s] is the number of jobs of
+    `order` still within their steps at step s < `steps` (a prefix of it)
+    and band[s] the widest of `widths` among them (0 without widths)."""
+    order = np.argsort(-steps_of, kind="stable")
+    live = np.searchsorted(-steps_of[order], -np.arange(steps), side="left")
+    band = np.zeros(steps, dtype=np.int64)
+    if widths is not None and len(order):
+        band = np.maximum.accumulate(widths[order])[np.maximum(live - 1, 0)]
+    return order, live.tolist(), band.tolist()
+
+
+GRAPH_STEPS = 32    # the shortest run of steps on one live prefix
+
+
+def _chunks(live, band, length=GRAPH_STEPS):
+    """(first step, steps) of each run of steps on one prefix: the steps
+    while the live count and band stay as at the first, or `length` steps
+    where that is fewer. The live count and band only fall, so the first
+    step's prefix and band hold every step of the run; a job whose steps
+    end inside the run stays in it masked, as a z-dropped job does."""
+    out, s, total = [], 0, len(live)
+    while s < total:
+        e = s + 1
+        while e < total and live[e] == live[s] and band[e] == band[s]:
+            e += 1
+        e = max(e, min(s + length, total))
+        out.append((s, e - s))
+        s = e
+    return out
+
+
+def _stepper(dev):
+    """run(step, count): step() `count` times. On a CUDA device each run
+    is captured once as a CUDA graph and replayed, since issuing a step's
+    few hundred small ops costs more than running them once few jobs are
+    live. The graphs share one memory pool: each is replayed before the
+    next is captured, and the last one is kept until then, which keeps
+    the pool alive. step() must update its state in place and read
+    nothing back to the host."""
+    if dev.type != "cuda":
+        def run(step, count):
+            for _ in range(count):
+                step()
+        return run
+    pool = torch.cuda.graph_pool_handle()
+    last = []
+
+    def run(step, count):
+        g = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            g.capture_begin(pool=pool, capture_error_mode="thread_local")
+            step()
+            g.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        last[:] = [g]
+        for _ in range(count):
+            g.replay()
+    return run
 
 
 def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
                     p_bytes, t_total, band_max, rows_max):
     """Plain PyTorch version of the forward kernel on any device: a loop
     over anti-diagonals r, vectorized over jobs and over each job's band
-    (lane k is t = st + k). Same outputs as `ksw_forward`."""
+    (lane k is t = st + k). Same outputs as `ksw_forward`.
+
+    The jobs are stepped longest first: row r works on the prefix of jobs
+    still within their rows and on the widest lanes among them (a job's
+    n_col_of + 16 lanes hold its aligned band and score block on every
+    row), so a row costs what its live jobs need. The row is a device
+    tensor and the state is updated in place, masked bytes go to a scratch
+    slot past the end of p: nothing in a row waits on the device, and a
+    run of rows on one prefix (`_chunks`) replays from a CUDA graph
+    (`_stepper`)."""
     del t_total
     q, e, q2, e2, mat0, sc_mis, sc_n, _lt, _ld = scoring
     dev = meta.device
     i32, i64 = torch.int32, torch.int64
     R = meta.shape[0]
+    mh = meta.cpu().numpy().astype(np.int64)
+    ql_h, tl_h, w_h = mh[:, M_QLEN], mh[:, M_TLEN], mh[:, M_W]
+    widths = np.array([n_col_of(a, b, max(a, b) if splice or c < 0 else c,
+                                splice) + 16
+                       for a, b, c in zip(ql_h, tl_h, w_h)], dtype=np.int64)
+    order, n_live, band = _live_order(ql_h + tl_h - 1, rows_max, widths)
+    perm = torch.from_numpy(order).to(dev)
+    meta, poff = meta[perm], poff[perm].to(i64)
     col = lambda c: meta[:, c].to(i64)
     qlen, tlen, w, zdrop = col(M_QLEN), col(M_TLEN), col(M_W), col(M_ZDROP)
     ncol = col(M_NCOL)
@@ -221,32 +299,45 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
                                                       device=dev)
     done = zdropped.clone()
     last_st, last_en, H0, h0t = sc(-1), sc(-1), sc(0), sc(0)
-    p = torch.zeros(max(p_bytes, 1), dtype=torch.uint8, device=dev)
-    k = torch.arange(band_max, dtype=i64, device=dev)[None, :]
+    p_scratch = max(p_bytes, 1)
+    p = torch.zeros(p_scratch + 1, dtype=torch.uint8, device=dev)
+    lanes = torch.arange(band_max, dtype=i64, device=dev)[None, :]
+    r = torch.zeros((), dtype=i64, device=dev)
+    ez = torch.zeros((R, EZ_COLS), dtype=i32, device=dev)
     g = lambda a, idx: a.gather(1, idx)
     g1 = lambda a, idx: a.gather(1, idx[:, None])[:, 0]
 
     def put(a, idx, val, mask):
         a.scatter_(1, idx, torch.where(mask, val, g(a, idx)))
 
-    for r in range(rows_max):
+    def emit(lo, hi):
+        """The ez rows of jobs lo..hi-1 of the order, past their rows."""
+        for c, val in ((C_MAX, mx), (C_MAX_T, mx_t), (C_MAX_Q, mx_q),
+                       (C_MQE, mqe), (C_MQE_T, mqe_t), (C_MTE, mte),
+                       (C_MTE_Q, mte_q), (C_SCORE, score),
+                       (C_ZDROP, zdropped)):
+            ez[lo:hi, c] = val[lo:hi].to(i32)
+
+    def row():
+        """Anti-diagonal r of the live prefix, on lanes k; then r += 1."""
         act = (r < nrows) & ~done
         st0, en0, st, en = _band(r, qlen, tlen, w, splice)
         closed = act & (st0 > en0)
-        zdropped |= closed
-        done |= closed
+        zdropped.logical_or_(closed)
+        done.logical_or_(closed)
         act &= ~closed
         st = torch.where(act, st, 0)
         en = torch.where(act, en, -1)
         st0 = torch.where(act, st0, 0)
         en0 = torch.where(act, en0, 0)
+        f_seed = _f_seed(r, scoring, splice)
         # boundary values at lane st-1 from the previous row
         prev = (st - 1).clamp(min=0)
         in_last = (st > 0) & (last_st <= st - 1) & (st - 1 <= last_en)
         x1 = torch.where(in_last, g1(x, prev), -qe)
         x21 = torch.where(in_last, g1(x2, prev), x2_init)
         v1 = torch.where(st > 0, torch.where(in_last, g1(v, prev), -qe),
-                         _f_seed(r, scoring, splice))
+                         f_seed)
         t = st[:, None] + k
         s_end = st0 + 16 * ((en0 - st0) // 16 + 1)
         in_band = act[:, None] & (t <= en[:, None])
@@ -262,7 +353,7 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
         tm1 = (t - 1).clamp(min=0)
         inj = act[:, None] & (en >= r)[:, None] & (t == r)
         u_old, y_old, y2_old = g(u, t), g(y, t), g(y2, t)
-        ut = torch.where(inj, _f_seed(r, scoring, splice), u_old)
+        ut = torch.where(inj, f_seed, u_old)
         yt = torch.where(inj, -qe, y_old)
         y2t = torch.where(inj, -qe2, y2_old)
         xt1 = torch.where(first, x1[:, None], g(x, tm1))
@@ -317,9 +408,9 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
         put(x, t, xn, in_band)
         put(y, t, yn, in_band)
         put(x2, t, x2n, in_band)
-        pm = in_band & cig[:, None]
-        pidx = poff[:, None] + r * ncol[:, None] + k
-        p[pidx[pm]] = d[pm].to(torch.uint8)
+        pidx = torch.where(in_band & cig[:, None],
+                           poff[:, None] + r * ncol[:, None] + k, p_scratch)
+        p.scatter_(0, pidx.reshape(-1), d.to(torch.uint8).reshape(-1))
 
         # exact H row and its maximum in the reference's scan order
         ex = act & ~approx
@@ -327,8 +418,8 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
         h_en0 = g1(H, en0)
         hcur = g(H, t)
         is_en0 = t == en0[:, None]
-        h_top = vn - qe if r == 0 else torch.where(
-            (en0 > 0)[:, None], h_m1[:, None] + un, h_en0[:, None] + vn)
+        h_top = torch.where(r == 0, vn - qe, torch.where(
+            (en0 > 0)[:, None], h_m1[:, None] + un, h_en0[:, None] + vn))
         hn = torch.where(is_en0, h_top, hcur + vn)
         upd = in_band & ex[:, None] & (t >= st0[:, None]) & (t <= en0[:, None])
         put(H, t, hn, upd)
@@ -349,12 +440,12 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
                                         + (kk - 1) // nr4))
         h_en0 = g1(H, en0)
         mte_upd = ex & (en0 == tlen - 1) & (h_en0 > mte)
-        mte = torch.where(mte_upd, h_en0, mte)
-        mte_q = torch.where(mte_upd, r - en, mte_q)
+        mte.copy_(torch.where(mte_upd, h_en0, mte))
+        mte_q.copy_(torch.where(mte_upd, r - en, mte_q))
         h_st0 = g1(H, st0)
         mqe_upd = ex & (r - st0 == qlen - 1) & (h_st0 > mqe)
-        mqe = torch.where(mqe_upd, h_st0, mqe)
-        mqe_t = torch.where(mqe_upd, st0, mqe_t)
+        mqe.copy_(torch.where(mqe_upd, h_st0, mqe))
+        mqe_t.copy_(torch.where(mqe_upd, st0, mqe_t))
 
         # approximate max: the greedy H0 path
         apx = act & approx
@@ -366,11 +457,11 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
             torch.where(one, H0 + v0, H0 + u1))
         h0t_new = torch.where(both, torch.where(v0 > u1, h0t, h0t + 1),
                               torch.where(one, h0t, h0t + 1))
-        if r == 0:
-            h0_new = g1(v, torch.zeros_like(h0t)) - qe
-            h0t_new = torch.zeros_like(h0t)
-        H0 = torch.where(apx, h0_new, H0)
-        h0t = torch.where(apx, h0t_new, h0t)
+        h0_new = torch.where(r == 0, g1(v, torch.zeros_like(h0t)) - qe,
+                             h0_new)
+        h0t_new = torch.where(r == 0, 0, h0t_new)
+        H0.copy_(torch.where(apx, h0_new, H0))
+        h0t.copy_(torch.where(apx, h0t_new, h0t))
 
         # ksw_apply_zdrop on H (exact) or H0 (approx with APPROX_DROP)
         zj = ex | (apx & adrop)
@@ -380,28 +471,51 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
         cand = zj & ~bet & (tval >= mx_t) & (r - tval >= mx_q)
         ll = ((tval - mx_t) - ((r - tval) - mx_q)).abs()
         dropped = cand & (zdrop >= 0) & (mx - hval > zdrop + ll * ze)
-        mx = torch.where(bet, hval, mx)
-        mx_t = torch.where(bet, tval, mx_t)
-        mx_q = torch.where(bet, r - tval, mx_q)
-        zdropped |= dropped
+        mx.copy_(torch.where(bet, hval, mx))
+        mx_t.copy_(torch.where(bet, tval, mx_t))
+        mx_q.copy_(torch.where(bet, r - tval, mx_q))
+        zdropped.logical_or_(dropped)
         fin = act & ~dropped & (r == nrows - 1) & (en0 == tlen - 1)
-        score = torch.where(fin, torch.where(approx, H0, h_en0), score)
-        done |= dropped | (act & (r == nrows - 1))
-        last_st = torch.where(act, st, last_st)
-        last_en = torch.where(act, en, last_en)
+        score.copy_(torch.where(fin, torch.where(approx, H0, h_en0), score))
+        done.logical_or_(dropped | (act & (r == nrows - 1)))
+        last_st.copy_(torch.where(act, st, last_st))
+        last_en.copy_(torch.where(act, en, last_en))
+        r.add_(1)
 
-    ez = torch.zeros((R, EZ_COLS), dtype=i32, device=dev)
-    for c, val in ((C_MAX, mx), (C_MAX_T, mx_t), (C_MAX_Q, mx_q),
-                   (C_MQE, mqe), (C_MQE_T, mqe_t), (C_MTE, mte),
-                   (C_MTE_Q, mte_q), (C_SCORE, score),
-                   (C_ZDROP, zdropped.to(i64))):
-        ez[:, c] = val.to(i32)
-    return p, ez
+    run = _stepper(dev)
+    nl = R      # the live prefix
+    for r0, count in _chunks(n_live, band):
+        n = n_live[r0]
+        if n < nl:
+            emit(n, nl)
+            if n == 0:
+                break
+            (qlen, tlen, w, zdrop, ncol, cig, right, approx, adrop, nrows,
+             poff, mx, mx_t, mx_q, mqe, mqe_t, mte, mte_q, score, zdropped,
+             done, last_st, last_en, H0, h0t, sf, sig, qr, u, v, x, y, x2,
+             y2, s, H) = (a[:n] for a in (
+                 qlen, tlen, w, zdrop, ncol, cig, right, approx, adrop,
+                 nrows, poff, mx, mx_t, mx_q, mqe, mqe_t, mte, mte_q, score,
+                 zdropped, done, last_st, last_en, H0, h0t, sf, sig, qr, u,
+                 v, x, y, x2, y2, s, H))
+            nl = n
+        k = lanes[:, :band[r0]]
+        run(row, count)
+
+    emit(0, nl)
+    ez_out = torch.empty_like(ez)
+    ez_out[perm] = ez
+    return p[:p_scratch], ez_out
 
 
 def ksw_walk_ref(p, poff, meta, ez, *, splice, ops_total):
     """Plain PyTorch version of the walk kernel: a loop over walk steps,
-    vectorized over jobs. Same outputs as `ksw_walk`."""
+    vectorized over jobs. Same outputs as `ksw_walk`. The jobs are stepped
+    longest walk bound (i + j + 2) first, each step on the prefix of jobs
+    still within their bound, the state updated in place; masked step
+    codes go to a scratch slot past the end of ops, nothing in a step
+    waits on the device, and a run of steps on one prefix (`_chunks`)
+    replays from a CUDA graph (`_stepper`)."""
     dev = meta.device
     i64 = torch.int64
     col = lambda c: meta[:, c].to(i64)
@@ -421,35 +535,56 @@ def ksw_walk_ref(p, poff, meta, ez, *, splice, ops_total):
     j = torch.where(reach_end | full, qlen - 1, ezl[:, C_MAX_Q])
     i = torch.where(walk, i, -1)
     j = torch.where(walk, j, -1)
+    bound = (i + j + 2).clamp(min=0).cpu().numpy()
+    order, n_live, band = _live_order(bound, int(bound.max())
+                                      if len(bound) else 0)
+    perm = torch.from_numpy(order).to(dev)
+    qlen, tlen, w, ncol, i, j = (a[perm] for a in (qlen, tlen, w, ncol, i, j))
+    base, opoff = poff.to(i64)[perm], col(M_OPOFF)[perm]
     state = torch.zeros_like(i)
     kk = torch.zeros_like(i)
-    ops = torch.zeros(max(ops_total, 1), dtype=torch.int8, device=dev)
-    steps = int((i + j + 2).clamp(min=0).max()) if len(i) else 0
-    base = poff.to(i64)
-    for _ in range(steps):
+    fin_i, fin_j, fin_k = i.clone(), j.clone(), kk.clone()
+    ops_scratch = max(ops_total, 1)
+    ops = torch.zeros(ops_scratch + 1, dtype=torch.int8, device=dev)
+
+    def step():
         live = (i >= 0) & (j >= 0)
         r = (i + j).clamp(min=0)
         _st0, _en0, st, en = _band(r, qlen, tlen, w, splice)
         force = torch.where(i < st, 2, torch.where(i > en, 1, -1))
         at = (base + r * ncol + (i - st)).clamp(0, max(len(p) - 1, 0))
-        tmp = torch.where(live & (force < 0), p[at].to(i64), 0)
-        state = torch.where(state == 0, tmp & 7,
-                            torch.where((tmp >> (state + 2)) & 1 == 1,
-                                        state, 0))
-        state = torch.where(state == 0, tmp & 7, state)
-        state = torch.where(force >= 0, force, state)
-        oat = (col(M_OPOFF) + kk).clamp(max=max(ops_total - 1, 0))
-        ops[oat[live]] = state[live].to(torch.int8)
+        tmp = torch.where(live & (force < 0), p.index_select(0, at).to(i64),
+                          0)
+        state.copy_(torch.where(state == 0, tmp & 7,
+                                torch.where((tmp >> (state + 2)) & 1 == 1,
+                                            state, 0)))
+        state.copy_(torch.where(state == 0, tmp & 7, state))
+        state.copy_(torch.where(force >= 0, force, state))
+        oat = (opoff + kk).clamp(max=max(ops_total - 1, 0))
+        ops.scatter_(0, torch.where(live, oat, ops_scratch),
+                     state.to(torch.int8))
         is_m = state == 0
         is_del = (state == 1) | (state == 3)
-        i = torch.where(live & (is_m | is_del), i - 1, i)
-        j = torch.where(live & (is_m | ~is_del), j - 1, j)
-        kk = torch.where(live, kk + 1, kk)
-        state = torch.where(live, state, 0)
-    ez[:, C_FIN_I] = torch.where(walk, i, -1).to(ez.dtype)
-    ez[:, C_FIN_J] = torch.where(walk, j, -1).to(ez.dtype)
-    ez[:, C_FIN_K] = kk.to(ez.dtype)
-    return ops
+        i.copy_(torch.where(live & (is_m | is_del), i - 1, i))
+        j.copy_(torch.where(live & (is_m | ~is_del), j - 1, j))
+        kk.copy_(torch.where(live, kk + 1, kk))
+        state.copy_(torch.where(live, state, 0))
+
+    run = _stepper(dev)
+    nl = len(order)     # the live prefix
+    for s0, count in _chunks(n_live, band):
+        n = n_live[s0]
+        if n < nl:
+            fin_i[n:nl], fin_j[n:nl], fin_k[n:nl] = i[n:], j[n:], kk[n:]
+            (qlen, tlen, w, ncol, base, opoff, i, j, state, kk) = (
+                a[:n] for a in (qlen, tlen, w, ncol, base, opoff, i, j,
+                                state, kk))
+            nl = n
+        run(step, count)
+    fin_i[:nl], fin_j[:nl], fin_k[:nl] = i, j, kk
+    for c, val in ((C_FIN_I, fin_i), (C_FIN_J, fin_j), (C_FIN_K, fin_k)):
+        ez[perm, c] = val.to(ez.dtype)     # (-1, -1, 0) where no walk
+    return ops[:ops_scratch]
 
 
 # --------------------------------------------------------------- batch API
