@@ -35,7 +35,17 @@ packages the same way:
 MM2TPU_NATIVE_CHAIN_MAX, MM2TPU_NATIVE_EXT_MAX and MM2TPU_DEVICE_SEEDS=1
 set the chain and extension crossovers (default 0: everything to the
 card) and device seed collection. The routing is printed on the
-`[timers]` line.
+`[timers]` line, then each span's wall time and count (`name=ms/n`) and
+each counter (`name=n`). The spans (utils/trace.py) nest: `map_batch`
+holds a batch's `seed` (`sketch`, `seed_hits`), `kernel` (`chain_upload`,
+`chain_launch`, `device_wait`), `pack`, `bottom`, `host_chain`, `align`
+(`native_finish`, the flow's reads' native finish; `staged_align`, whose
+rounds are `skeleton` spans beside the executor's `ext_wave` with
+`ext_pack`, `ext_upload`, `ext_launch`, `device_wait`, `ext_decode`, and
+`ext_native`, `ext_host`) and `epilogue`; `feed_wait` is the wait for
+the next input batch; the stealing lane's chunks are `steal_prep`,
+`steal_flow`, `steal_finish`. `native_finish`, `ext_native` and
+`ext_host` name both a span and a counter of reads or jobs.
 Follows minimap2_chaindp_tpu/cli.py:_main (:334-658) without the JAX
 compile cache, the link probe and deferred device init.
 """

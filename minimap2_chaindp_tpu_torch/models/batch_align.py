@@ -53,6 +53,10 @@ class HostAlignExecutor:
         self.n_device = self.n_native = self.n_host = 0
         self._lock = threading.Lock()   # two map_stream batch threads
 
+    def _span(self, name: str):
+        return nullcontext() if self.timers is None \
+            else self.timers.time(name)
+
     def _count(self, name: str, n: int) -> None:
         if not n:
             return
@@ -75,7 +79,10 @@ class HostAlignExecutor:
             from ..native import extd2_batch_native
             nat_fn = lambda js: extd2_batch_native(js, self.mat, o.q, o.e,
                                                    o.q2, o.e2)
-        res = nat_fn([jobs[i] for i in idxs]) if nat_fn is not None else None
+        res = None
+        if nat_fn is not None:
+            with self._span("ext_native"):
+                res = nat_fn([jobs[i] for i in idxs])
         if res is None:
             return idxs
         for i, ez in zip(idxs, res):
@@ -145,34 +152,44 @@ class CudaAlignExecutor(HostAlignExecutor):
             dev = []
         if dev:
             o = self.opt
-            span = nullcontext() if self.timers is None \
-                else self.timers.time("ext_wave")
-            with span:   # pack, launches, read-back and CIGAR decode
+            # pack, upload, launches, the wait, read-back and CIGAR decode
+            with self._span("ext_wave"):
                 if self.splice:
                     res = KE.exts2_batch([jobs[i] for i in dev], self.mat,
                                          o.q, o.e, o.q2, o.noncan,
-                                         device=self.device)
+                                         device=self.device,
+                                         timers=self.timers)
                 else:
                     res = KE.extd2_batch([jobs[i] for i in dev], self.mat,
                                          o.q, o.e, o.q2, o.e2,
-                                         device=self.device)
+                                         device=self.device,
+                                         timers=self.timers)
             for i, ez in zip(dev, res):
                 thunks[i] = (lambda v=ez: v)
             self._count("device", len(dev))
-        return self._run_host(jobs, thunks)
+        if all(t is not None for t in thunks):
+            return thunks
+        with self._span("ext_host"):
+            return self._run_host(jobs, thunks)
 
 
 def run_scheduler(gens: list, executor) -> list:
     """Drive many wave-yielding generators to completion, executing the
     union of their current waves in one executor call per round.
-    Returns each generator's StopIteration value, in order."""
+    Returns each generator's StopIteration value, in order. Each round's
+    advance of the generators (the Python align skeleton) is one
+    `skeleton` span of the executor's timers, where it has them."""
+    timers = getattr(executor, "timers", None)
+    skeleton = (lambda: nullcontext()) if timers is None \
+        else (lambda: timers.time("skeleton"))
     results = [None] * len(gens)
     live: dict[int, tuple] = {}
-    for idx, g in enumerate(gens):
-        try:
-            live[idx] = (g, next(g))
-        except StopIteration as e:
-            results[idx] = e.value
+    with skeleton():
+        for idx, g in enumerate(gens):
+            try:
+                live[idx] = (g, next(g))
+            except StopIteration as e:
+                results[idx] = e.value
     while live:
         all_jobs: list = []
         spans: dict[int, tuple[int, int]] = {}
@@ -181,11 +198,12 @@ def run_scheduler(gens: list, executor) -> list:
             all_jobs.extend(wave)
         thunks = executor.run(all_jobs)
         nxt: dict[int, tuple] = {}
-        for idx, (g, wave) in live.items():
-            off, ln = spans[idx]
-            try:
-                nxt[idx] = (g, g.send(thunks[off:off + ln]))
-            except StopIteration as e:
-                results[idx] = e.value
+        with skeleton():
+            for idx, (g, wave) in live.items():
+                off, ln = spans[idx]
+                try:
+                    nxt[idx] = (g, g.send(thunks[off:off + ln]))
+                except StopIteration as e:
+                    results[idx] = e.value
         live = nxt
     return results

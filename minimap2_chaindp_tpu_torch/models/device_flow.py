@@ -25,17 +25,20 @@ import torch
 from .. import constants as C
 from ..ops import chain_pack as CP
 from ..ops.chain import Chains, chain_backtrack
-from ..ops.chain_dp import chain_scores_batch
+from ..ops.chain_dp import chain_scores_batch, count_launch
 from ..ops.chain_host import _v_from_fp, compact_from_fpv
 from ..ops.seeds import SeedHits
 from ..ops.seeds_device import (PAD_HI, SIGN, _collect_dev_pos, _rep_len,
                                 device_index_cached, split_u64)
 from ..utils.timers import Timers
+from ..utils.trace import active
 
 # (minimizer-count, anchor-capacity) buckets: a read takes the smallest
 # bucket that fits both counts; past the last one it takes the staged path
 M_BUCKETS = (256, 1024, 2048, 4096)
 CAP_BUCKETS = (512, 1024, 2048, 4096, 8192)
+# the host arrays `place` uploads for a single-device bucket
+PLACED = ("qposidx", "qpos", "qspan8", "qls", "nn", "w1", "exc")
 
 
 def host_seed_stats(mi, mv: np.ndarray, max_occ: int):
@@ -125,6 +128,19 @@ def flow_tail(xhi, xlo, yhi, ylo, total, nn, w1, exc, *, cap, max_dist_x,
         max_skip=max_skip, is_cdna=False, many_segs=False, use_exc=use_exc)
 
 
+def flow_pairs(x, max_dist_x: int) -> int:
+    """The candidate pairs the chain kernel scores on one row of the flow:
+    `flow_tail`'s window starts over the row's live anchors `x` (uint64,
+    sorted; the unsigned x high half orders as its biased sort key does),
+    each the first anchor of the same high half at or past
+    max(x low - max_dist_x, 0)."""
+    lo = (x & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    target = (x & np.uint64(0xFFFFFFFF00000000)) \
+        | np.maximum(lo - max_dist_x, 0).astype(np.uint64)
+    stw = np.searchsorted(x, target, side="left")
+    return int((np.arange(len(x)) - stw).sum())
+
+
 def flow_step(dx, qposidx, qpos, qspan8, max_occ, qls, nn, w1, exc, *, cap,
               max_dist_x, max_dist_y, bw, max_skip, use_exc):
     """One fused device step for a bucket: collect, window starts, chain.
@@ -200,9 +216,7 @@ class DeviceFlow:
 
     def place(self, q: dict) -> dict:
         """A single-device bucket's host arrays as tensors on the device."""
-        return {k: torch.from_numpy(q[k]).to(self.device)
-                for k in ("qposidx", "qpos", "qspan8", "qls", "nn", "w1",
-                          "exc")}
+        return {k: torch.from_numpy(q[k]).to(self.device) for k in PLACED}
 
     def step(self, d: dict, *, cap, gq, gr, use_exc):
         """flow_step on a bucket that place() put on the device."""
@@ -324,7 +338,14 @@ class DeviceFlow:
         staged = []
         for entries, q, kw in buckets:
             with timers.time("kernel"):
-                out = self._launch(q, **kw)
+                if self.mesh is None:
+                    with timers.time("chain_upload"):
+                        d = self.place(q)
+                    with timers.time("chain_launch"):
+                        out = self.step(d, **kw)
+                else:
+                    with timers.time("chain_launch"):
+                        out = self._launch(q, **kw)
             staged.append((entries, out))
 
         from ..native import chain_bottom_native
@@ -333,7 +354,7 @@ class DeviceFlow:
         # the staged dispatches (nothing above waited on the device)
         host_sh: dict[int, SeedHits] = {}
         if not self.ship_anchors:
-            with timers.time("seed"):
+            with timers.time("seed"), timers.time("flow_seed_hits"):
                 for entries, _out in staged:
                     for k, _, _ in entries:
                         info = units[k][1]
@@ -341,14 +362,18 @@ class DeviceFlow:
                             mi, opt.flag, opt.mid_occ, info.mv, None,
                             info.qlen_sum)
 
-        for entries, out in staged:
-            with timers.time("kernel"):
-                xhi, xlo, yhi, ylo, f, p, flag = out
-                if self.ship_anchors:
-                    fetch = (xhi, xlo, yhi, ylo, f, p, flag[:, 0])
-                else:
-                    fetch = (f, p, flag[:, 0])
+        counting = active()
+        for (entries, out), (_e, q, kw) in zip(staged, buckets):
+            xhi, xlo, yhi, ylo, f, p, flag = out
+            if self.ship_anchors:
+                fetch = (xhi, xlo, yhi, ylo, f, p, flag[:, 0])
+            else:
+                fetch = (f, p, flag[:, 0])
+            with timers.time("kernel"), timers.time("device_wait"):
                 arrs = [t.cpu().numpy() for t in fetch]
+            if counting:
+                self._count_launch(timers, entries, host_sh, q, kw, out,
+                                   arrs)
             if self.ship_anchors:
                 xhi, xlo, yhi, ylo, f, p, flag = arrs
             else:
@@ -394,6 +419,28 @@ class DeviceFlow:
                     results[k] = ch
                     timers.count("device_reads")
         return results
+
+    def _count_launch(self, timers, entries, host_sh, q, kw, out, arrs):
+        """A bucket's launch work counters (ops/chain_dp.count_launch):
+        its pairs from each row's anchors, as they came back from the card
+        or as the host re-derived them, its nine inputs as `flow_tail`
+        hands them to the kernel (six (R, cap) int32 planes, nn, w1 and
+        exc), the bytes `place` uploaded (none to a mesh's ranks) and those
+        read back."""
+        if self.ship_anchors:
+            xs = ((arrs[0].astype(np.int64) & 0xFFFFFFFF).astype(np.uint64)
+                  << np.uint64(32)) | arrs[1].astype(np.uint64)
+        else:
+            xs = [host_sh[k].anchors[:, 0] for k, _, _ in entries]
+        n = q["nn"][:, 0]
+        pairs = sum(flow_pairs(xs[r][:n[r]], kw["gr"])
+                    for r in range(len(entries)))
+        R = len(n)
+        planes = 6 * R * kw["cap"] * 4
+        h2d = 0 if self.mesh is not None else sum(q[k].nbytes for k in PLACED)
+        count_launch(timers, "single", pairs, planes + sum(
+            q[k].nbytes for k in ("nn", "w1", "exc")), out[4:], h2d)
+        timers.count("chain_d2h_bytes", sum(a.nbytes for a in arrs))
 
     @staticmethod
     def _seedhits(mv, over, anchors) -> SeedHits:

@@ -53,9 +53,10 @@ import torch
 from .. import constants as C
 from ..ops import chain_pack as CP
 from ..ops.chain import Chains, chain_backtrack
-from ..ops.chain_dp import chain_scores_batch
+from ..ops.chain_dp import (chain_scores_batch, count_launch, window_pairs,
+                             work_mode)
 from ..ops.chain_host import _v_from_fp, compact_from_fpv, split_anchors
-from ..utils.timers import Timers
+from ..utils.trace import Tracer, active, carry
 from .batch_align import CudaAlignExecutor, run_scheduler
 from .device_flow import CAP_BUCKETS, M_BUCKETS, DeviceFlow, flow_mode_ok
 from .pipeline import (finish_unit_gen, format_frag, host_chain,
@@ -73,6 +74,7 @@ STEAL_MIN_FRAGS = 2 * 64
 # the flow's minimizer bucket (~qlen/5.3 entries) binds before its anchor
 # capacity at occ ~1: longer reads never take the flow (:528-531)
 DEV_QLEN_MAX = min(M_BUCKETS[-1], CAP_BUCKETS[-1]) * 5
+_END = object()      # map_stream's end of input
 
 
 class _ChunkView:
@@ -130,7 +132,7 @@ class TorchRuntime:
         self.native_chain_max = int(native_chain_max)
         self.native_ext_max = int(native_ext_max)
         self.device_seeds = bool(device_seeds)
-        self.timers = Timers()
+        self.timers = Tracer()
         self._flow = None
         self._flow_lock = threading.Lock()
         # the flow's build: its own lock, so that the build, which may run
@@ -287,7 +289,12 @@ class TorchRuntime:
         try:
             with ThreadPoolExecutor(max_workers=2) as ex:
                 futs = deque()
-                for batch in batches:
+                it = iter(batches)
+                while True:
+                    with self.timers.time("feed_wait"):
+                        batch = next(it, _END)
+                    if batch is _END:
+                        break
                     futs.append(ex.submit(self.map_batch, batch, rg_id))
                     if len(futs) >= 2:
                         yield futs.popleft().result()
@@ -298,18 +305,21 @@ class TorchRuntime:
             self._draining = True
 
     def map_batch(self, frags, rg_id: str = "") -> list[list[str]]:
-        """Map a batch of fragments; returns per-fragment output lines."""
+        """Map a batch of fragments; returns per-fragment output lines.
+        The batch's spans are children of its `map_batch` span."""
         from ..native import map_unit_ok
-        if self.routing == "host":
-            return self._host_rt().map_batch(frags, rg_id)
-        # the stealing lanes need a host lane, the one-call native driver
-        # (:325-326, :353-361)
-        if (self.routing == "steal" and len(frags) >= STEAL_MIN_FRAGS
-                and map_unit_ok(self.opt, self.mi) and not self.device_seeds):
-            from .steal import run_steal_batch
-            return run_steal_batch(self, frags, rg_id)
-        return self._map_batch1(frags, rg_id, self.flow_share
-                                if self.routing == "share" else 1.0)
+        with self.timers.time("map_batch"):
+            if self.routing == "host":
+                return self._host_rt().map_batch(frags, rg_id)
+            # the stealing lanes need a host lane, the one-call native
+            # driver (:325-326, :353-361)
+            if (self.routing == "steal" and len(frags) >= STEAL_MIN_FRAGS
+                    and map_unit_ok(self.opt, self.mi)
+                    and not self.device_seeds):
+                from .steal import run_steal_batch
+                return run_steal_batch(self, frags, rg_id)
+            return self._map_batch1(frags, rg_id, self.flow_share
+                                    if self.routing == "share" else 1.0)
 
     def _map_batch1(self, frags, rg_id: str, share: float):
         """One batch over the card's paths and, where `share` < 1 or the
@@ -367,16 +377,16 @@ class TorchRuntime:
                     if len(frag.segs) == 1:
                         se_elig.append(fi)
                     else:
-                        host_futs[fi] = ex.submit(fast_one, frag)
+                        host_futs[fi] = ex.submit(carry(fast_one), frag)
             # chunks of single-segment reads per native call (:622)
             for st in range(0, len(se_elig), HOST_CH):
                 idxs = se_elig[st:st + HOST_CH]
-                fut = ex.submit(fast_chunk, idxs)
+                fut = ex.submit(carry(fast_chunk), idxs)
                 for j, fi in enumerate(idxs):
                     host_futs[fi] = _ChunkView(fut, j)
 
         frag_meta, units = [], []
-        with self.timers.time("seed"):
+        with self.timers.time("seed"), self.timers.time("sketch"):
             for fi, frag in enumerate(frags):
                 if fi in host_futs:
                     frag_meta.append(None)
@@ -397,7 +407,8 @@ class TorchRuntime:
         lines: list = [None] * len(frags)
         done: set[int] = set()
         if flow_chains and unit_ok:
-            with self.timers.time("align"):
+            with self.timers.time("align"), \
+                    self.timers.time("native_finish"):
                 for fi, meta in enumerate(frag_meta):
                     if meta is None:
                         continue
@@ -425,12 +436,13 @@ class TorchRuntime:
                 lines[fi] is None and meta is not None
                 for fi, meta in enumerate(frag_meta)))
             pending = [units[k] for k in staged]
-            with self.timers.time("seed"):
+            with self.timers.time("seed"), self.timers.time("seed_hits"):
                 self._seed_hits(pending)
             chains = self._chain_batch(pending, {
                 i: flow_chains[k] for i, k in enumerate(staged)
                 if k in flow_chains})
-            with self.timers.time("align"):
+            with self.timers.time("align"), \
+                    self.timers.time("staged_align"):
                 gens = [finish_unit_gen(mi, self._opt_staged, info, ch)
                         for (_u, info), ch in zip(pending, chains)]
                 regs = dict(zip(staged, run_scheduler(gens,
@@ -545,19 +557,30 @@ class TorchRuntime:
                                   / np.float32(len(a))))
             with self.timers.time("pack"):
                 packed, nn, w1, exc, host_flag = CP.pack_reads(reads, b, gr)
-            to_dev = lambda arr: torch.from_numpy(arr).to(dev)
+            host = [packed[x] for x in _CHAIN_FIELDS] + [nn, w1, exc]
             with self.timers.time("kernel"):
-                out = chain_scores_batch(
-                    *(to_dev(packed[x]) for x in _CHAIN_FIELDS),
-                    to_dev(nn), to_dev(w1), to_dev(exc), max_n=b,
-                    max_dist_x=gr, max_dist_y=gq, bw=opt.bw,
-                    max_skip=opt.max_chain_skip, is_cdna=is_cdna,
-                    many_segs=many, use_exc=CP.infer_use_exc(exc))
+                with self.timers.time("chain_upload"):
+                    args = [torch.from_numpy(a).to(dev) for a in host]
+                with self.timers.time("chain_launch"):
+                    out = chain_scores_batch(
+                        *args, max_n=b, max_dist_x=gr, max_dist_y=gq,
+                        bw=opt.bw, max_skip=opt.max_chain_skip,
+                        is_cdna=is_cdna, many_segs=many,
+                        use_exc=CP.infer_use_exc(exc))
+            if active():
+                in_bytes = sum(a.nbytes for a in host)
+                count_launch(self.timers, work_mode(is_cdna, many),
+                             window_pairs(packed["stw"], nn), in_bytes, out,
+                             in_bytes)
             staged.append((idxs, host_flag, out))
         for idxs, host_flag, (f, p, flag) in staged:
-            with self.timers.time("kernel"):
+            with self.timers.time("kernel"), \
+                    self.timers.time("device_wait"):
                 f, p, flag = (f.cpu().numpy(), p.cpu().numpy(),
                               flag[:, 0].cpu().numpy())
+            if active():
+                self.timers.count("chain_d2h_bytes",
+                                  f.nbytes + p.nbytes + flag.nbytes)
             with self.timers.time("bottom"):
                 for r, k in enumerate(idxs):
                     if host_flag[r] or flag[r]:

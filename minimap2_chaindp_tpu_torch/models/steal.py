@@ -14,9 +14,12 @@ on a device chunk longer than the chunk saved.
 The lane measures both lanes' per-read cost (the lane thread's CPU time
 for the device lane, wall time for the CPU-bound host lane) and pauses
 pulling while a device read costs more host CPU than GUARD of a host read;
-a paused lane probes one chunk every PROBE_S seconds. The decomposition of
-the lane's CPU is exported as the timers counters
-steal_cpu_{prep,flowhost,finish}_ms.
+a paused lane probes one chunk every PROBE_S seconds. A device chunk's
+parts are the spans steal_prep (prepare and sketch), steal_flow (the
+flow's host side and its waits on the card) and steal_finish (the native
+finish), which in a trace carry the lane thread's CPU time
+(utils/trace.py); the lane thread runs inside its batch's map_batch span
+as the `steal_lane` role.
 
 What differs from the JAX module, and why:
 - the tunables are module constants, not environment reads;
@@ -56,6 +59,8 @@ import os
 import threading
 import time
 from collections import deque
+
+from ..utils.trace import carry
 
 HOST_CH = 24                    # host-lane batched-native chunk
 DEV_CH = 16                     # the device lane's first chunk
@@ -175,40 +180,34 @@ def _dev_map_chunk(rt, frags, idxs, rg_id) -> dict:
     steal_dev_fallback): exact either way. Returns {index: lines}."""
     from ..native import map_unit_text_chains_native, map_unit_text_native
     from .pipeline import map_fragment_output, prepare_frag, seed_unit
-    tt = time.thread_time
-    t0 = tt()
     units = []
-    for i in idxs:
-        _work, _flipped, us = prepare_frag(rt.opt, frags[i].segs)
-        units.append((us[0], seed_unit(rt.mi, rt.opt, us[0],
-                                       collect_hits=False)))
-    t1 = tt()
-    chains = rt._get_flow().run(units, rt.timers)
-    t2 = tt()
+    with rt.timers.time("steal_prep"):
+        for i in idxs:
+            _work, _flipped, us = prepare_frag(rt.opt, frags[i].segs)
+            units.append((us[0], seed_unit(rt.mi, rt.opt, us[0],
+                                           collect_hits=False)))
+    with rt.timers.time("steal_flow"):
+        chains = rt._get_flow().run(units, rt.timers)
     out = {}
-    for k, i in enumerate(idxs):
-        info = units[k][1]
-        ch = chains.get(k)
-        lines = None
-        if ch is not None and info.sh is not None:
-            lines = map_unit_text_chains_native(
-                rt.mi, rt.opt, frags[i].segs[0], rg_id, ch,
-                info.sh.rep_len, info.sh.mini_pos)
-            if lines is not None:
-                rt.timers.count("native_finish")
-        if lines is None:
-            lines = map_unit_text_native(rt.mi, rt.opt, frags[i].segs[0],
-                                         rg_id)
+    with rt.timers.time("steal_finish"):
+        for k, i in enumerate(idxs):
+            info = units[k][1]
+            ch = chains.get(k)
+            lines = None
+            if ch is not None and info.sh is not None:
+                lines = map_unit_text_chains_native(
+                    rt.mi, rt.opt, frags[i].segs[0], rg_id, ch,
+                    info.sh.rep_len, info.sh.mini_pos)
+                if lines is not None:
+                    rt.timers.count("native_finish")
             if lines is None:
-                lines = map_fragment_output(rt.mi, rt.opt, frags[i].segs,
-                                            rg_id)
-            rt.timers.count("steal_dev_fallback")
-        out[i] = lines
-    t3 = tt()
-    # the decomposition of the lane's host-side CPU
-    rt.timers.count("steal_cpu_prep_ms", int((t1 - t0) * 1000))
-    rt.timers.count("steal_cpu_flowhost_ms", int((t2 - t1) * 1000))
-    rt.timers.count("steal_cpu_finish_ms", int((t3 - t2) * 1000))
+                lines = map_unit_text_native(rt.mi, rt.opt,
+                                             frags[i].segs[0], rg_id)
+                if lines is None:
+                    lines = map_fragment_output(rt.mi, rt.opt,
+                                                frags[i].segs, rg_id)
+                rt.timers.count("steal_dev_fallback")
+            out[i] = lines
     return out
 
 
@@ -345,7 +344,7 @@ def run_steal_batch(rt, frags, rg_id: str = "") -> list[list[str]]:
     worker = None
     if lane:
         worker = threading.Thread(
-            target=_dev_loop,
+            target=carry(_dev_loop, "steal_lane"),
             args=(rt, st, frags, rg_id, q_any, lock, results, stop, errors),
             daemon=True, name="mm2tpu-steal")
         worker.start()

@@ -13,6 +13,7 @@ from __future__ import annotations
 import functools
 import threading
 
+import numpy as np
 import torch
 
 from .chain_pack import LANES, N_EXC, NEG_INF, TBL
@@ -125,6 +126,33 @@ chain_scores_batch.launches = 0
 chain_scores_batch.by_form = dict.fromkeys(FORMS, 0)
 chain_scores_batch.force = None   # a form of FORMS, where a caller times both
 _launch_lock = threading.Lock()
+
+
+def work_mode(is_cdna: bool, many_segs: bool) -> str:
+    """The launch work counters' name for a mode: chain_pairs_<mode>."""
+    return "cdna" if is_cdna else ("many_segs" if many_segs else "single")
+
+
+def window_pairs(stw, nn) -> int:
+    """The candidate pairs a launch scores: j in [max(stw[r, i], 0), i) for
+    every anchor i < nn[r, 0] of every row (numpy stw (R, max_n), nn
+    (R, LANES))."""
+    i = np.arange(stw.shape[1], dtype=np.int64)[None, :]
+    live = i < nn[:, :1].astype(np.int64)
+    return int(((i - np.maximum(stw.astype(np.int64), 0)) * live).sum())
+
+
+def count_launch(timers, mode: str, pairs: int, in_bytes: int, out,
+                 h2d_bytes: int) -> None:
+    """One launch's work counters: its candidate pairs (chain_pairs_<mode>),
+    the bytes of its nine inputs (chain_in_bytes), those of f, p and the
+    flag column of its outputs `out` (chain_out_bytes; their sizes only are
+    read) and the bytes the host uploaded for it (chain_h2d_bytes)."""
+    f, p, flag = out
+    timers.count(f"chain_pairs_{mode}", pairs)
+    timers.count("chain_in_bytes", in_bytes)
+    timers.count("chain_out_bytes", f.nbytes + p.nbytes + flag[:, 0].nbytes)
+    timers.count("chain_h2d_bytes", h2d_bytes)
 
 
 def chain_scores_batch_ref(xhi, rpos, qpos, span, sid, stw, nn, w1, exc, *,

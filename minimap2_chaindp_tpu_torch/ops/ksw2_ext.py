@@ -23,6 +23,7 @@ device memory for jobs too wide for it, each longest job first. `ksw_walk` runs 
 from __future__ import annotations
 
 import threading
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ from .ksw2_pack import (C_FIN_I, C_FIN_J, C_FIN_K, C_MAX, C_MAX_Q, C_MAX_T,
                         M_OPOFF, M_QLEN, M_QOFF, M_RIGHT, M_SCONLY, M_TLEN,
                         M_TOFF, M_W, M_ZDROP, _decode_walk, _ez_from_row,
                         gap_params, n_col_of, pack_jobs, split_by_budget)
+from ..utils.trace import active
 
 P_BUDGET = 2 << 30      # backtrack bytes per forward launch
 # pack_jobs' arrays that go to the device, in the wrappers' argument order
@@ -599,68 +601,167 @@ def forward_scoring(mat, gaps, *, splice) -> tuple:
             long_diff)
 
 
-def _batch_async(jobs, mat, gaps, *, splice, noncan, device):
+def _batch_async(jobs, mat, gaps, *, splice, noncan, device, timers=None):
+    span = timers.time if timers is not None else (lambda _n: nullcontext())
+    counting = timers is not None and active()
     scoring = forward_scoring(mat, gaps, splice=splice)
     long_thres = gaps[4]
     dev = torch.device(device)
     staged = []
     for idxs in split_by_budget(jobs, splice, P_BUDGET):
         grp = [jobs[i] for i in idxs]
-        pk = pack_jobs(grp, splice=splice, noncan=noncan)
-        ts = {k: torch.from_numpy(pk[k]).to(dev) for k in TENSOR_KEYS}
-        p, ez = ksw_forward(
-            *(ts[k] for k in TENSOR_KEYS), groups=pk["groups"],
-            scoring=scoring, splice=splice, p_bytes=pk["p_bytes"],
-            t_total=pk["t_total"], band_max=pk["band_max"],
-            rows_max=pk["rows_max"])
-        ops = ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez,
-                       splice=splice, ops_total=pk["ops_total"])
+        with span("ext_pack"):
+            pk = pack_jobs(grp, splice=splice, noncan=noncan)
+        with span("ext_upload"):
+            ts = {k: torch.from_numpy(pk[k]).to(dev) for k in TENSOR_KEYS}
+        with span("ext_launch"):
+            p, ez = ksw_forward(
+                *(ts[k] for k in TENSOR_KEYS), groups=pk["groups"],
+                scoring=scoring, splice=splice, p_bytes=pk["p_bytes"],
+                t_total=pk["t_total"], band_max=pk["band_max"],
+                rows_max=pk["rows_max"])
+            ops = ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez,
+                           splice=splice, ops_total=pk["ops_total"])
+        if counting:
+            timers.count("ksw_h2d_bytes",
+                         sum(pk[k].nbytes for k in TENSOR_KEYS))
         staged.append((grp, pk, ez, ops))
 
     def collect_ez():
         out_all = []
         for grp, pk, ez, ops in staged:
-            ez_h = ez.cpu().numpy()
-            out = [_ez_from_row(ez_h[j]) for j in range(len(grp))]
-            ops_h = ops.cpu().numpy()
-            ops_l = [ops_h[int(o):] for o in pk["meta"][:, M_OPOFF]]
-            _decode_walk(grp, out, ez_h, ops_l, splice=splice,
-                         long_thres=long_thres)
+            if dev.type == "cuda":
+                # the card's work ends here; the read-back below copies
+                with span("device_wait"):
+                    torch.cuda.current_stream(dev).synchronize()
+            with span("ext_decode"):
+                ez_h = ez.cpu().numpy()
+                out = [_ez_from_row(ez_h[j]) for j in range(len(grp))]
+                ops_h = ops.cpu().numpy()
+                ops_l = [ops_h[int(o):] for o in pk["meta"][:, M_OPOFF]]
+                _decode_walk(grp, out, ez_h, ops_l, splice=splice,
+                             long_thres=long_thres)
+            if counting:
+                timers.count("ksw_d2h_bytes", ez_h.nbytes + ops_h.nbytes)
+                count_work(timers, grp, out, splice)
             out_all.extend(out)
         return lambda: out_all
     return collect_ez
 
 
+def count_work(timers, jobs, results, splice: bool) -> None:
+    """One launch's work counters, each as benchmark/roofline.py's
+    `ksw_work` counts it: ksw_cells_<kind> (the cells of the live band of
+    every anti-diagonal a job computes: all of them, or up to its maximum
+    where it z-dropped), of them those of approximate-maximum jobs
+    (ksw_cells_<kind>_approx) and of score-only jobs
+    (ksw_cells_<kind>_score), ksw_jobs_<kind>, walk_steps (a step per
+    CIGAR base of every job with a CIGAR) and ksw_in_bytes (the query and
+    the target once, and a splice signal a target base); <kind> is extd2
+    or exts2."""
+    kind = "exts2" if splice else "extd2"
+    ql = np.array([len(j["qseq"]) for j in jobs], np.int64)
+    tl = np.array([len(j["tseq"]) for j in jobs], np.int64)
+    flag = np.array([j["flag"] for j in jobs], np.int64)
+    rows = ql + tl - 1
+    cut = np.array([max(ez.max_t + ez.max_q + 1, 1) if ez.zdropped
+                    else r for ez, r in zip(results, rows)], np.int64)
+    rows = np.minimum(rows, cut)
+    w = None
+    if not splice:
+        w = np.array([j["w"] for j in jobs], np.int64)
+        w = np.where(w >= 0, w, np.maximum(ql, tl))
+    cells = _band_cells(ql, tl, w, rows)
+    score = (flag & K.KSW_EZ_SCORE_ONLY) != 0
+    steps = sum(int(c) >> 4 for ez, s in zip(results, score) if not s
+                for c in ez.cigar)
+    timers.count(f"ksw_cells_{kind}", int(cells.sum()))
+    timers.count(f"ksw_cells_{kind}_approx",
+                 int(cells[(flag & K.KSW_EZ_APPROX_MAX) != 0].sum()))
+    timers.count(f"ksw_cells_{kind}_score", int(cells[score].sum()))
+    timers.count(f"ksw_jobs_{kind}", len(jobs))
+    timers.count("walk_steps", steps)
+    timers.count("ksw_in_bytes", int((ql + tl * (2 if splice else 1)).sum()))
+
+
+def _band_cells(ql, tl, w, rows, chunk: int = 1 << 22) -> np.ndarray:
+    """Each job's cells over its first `rows` anti-diagonals: those of the
+    query x target matrix, and of the band of width `w` where it is given
+    (extd2's). Where no band binds (none, or w >= ql + tl - 1) the sum is
+    closed: anti-diagonal r holds min(r + 1, ql, tl, ql + tl - 1 - r)
+    cells. Elsewhere one int32 lane a row, over jobs taken `chunk` rows at
+    once."""
+    out = np.empty(len(rows), np.int64)
+    free = np.ones(len(rows), bool) if w is None else w >= ql + tl - 1
+    a, b, R = (np.minimum(ql, tl)[free], np.maximum(ql, tl)[free],
+               rows[free])
+    n = np.maximum(R - b, 0)        # rows past both sides' lengths
+    out[free] = np.where(
+        R <= a, R * (R + 1) // 2,
+        a * (a + 1) // 2 + (np.minimum(R, b) - a) * a
+        + n * (a - 1) - n * (n - 1) // 2)
+    band = np.flatnonzero(~free)
+    i = 0
+    while i < len(band):
+        rr = rows[band[i:]]
+        j = i + max(1, int(np.searchsorted(np.cumsum(rr), chunk,
+                                           side="right")))
+        k = band[i:j]
+        rr = rows[k]
+        ends = np.cumsum(rr)
+        per = lambda v: np.repeat(v[k].astype(np.int32), rr)
+        r = np.arange(int(ends[-1]), dtype=np.int32) \
+            - np.repeat((ends - rr).astype(np.int32), rr)
+        st = np.maximum(r - per(ql) + 1, 0)
+        en = np.minimum(per(tl) - 1, r)
+        wr = per(w)
+        np.maximum(st, (r - wr + 1) >> 1, out=st)
+        np.minimum(en, (r + wr) >> 1, out=en)
+        cum = np.concatenate(([0], np.cumsum(np.maximum(en - st + 1, 0),
+                                             dtype=np.int64)))
+        out[k] = cum[ends] - cum[ends - rr]
+        i = j
+    return out
+
+
 def extd2_batch(jobs, mat, q, e, q2, e2, interpret=False, quantize=False,
-                backtrack="host", device="cuda"):
+                backtrack="host", device="cuda", timers=None):
     """Batched ksw_extd2: extd2_batch_async run to its end."""
     return extd2_batch_async(jobs, mat, q, e, q2, e2, interpret=interpret,
                              quantize=quantize, backtrack=backtrack,
-                             device=device)()()
+                             device=device, timers=timers)()()
 
 
 def extd2_batch_async(jobs, mat, q, e, q2, e2, interpret=False,
-                      quantize=False, backtrack="host", device="cuda"):
+                      quantize=False, backtrack="host", device="cuda",
+                      timers=None):
     """Batched ksw_extd2 with K.extd2's per-job semantics; jobs are dicts
     (qseq, tseq, w, zdrop, end_bonus, flag). Dispatches and returns
-    collect_ez (see the module docstring)."""
+    collect_ez (see the module docstring). `timers`, when given, receives
+    the spans ext_pack, ext_upload, ext_launch, device_wait and ext_decode
+    and, in a trace, the launch work counters (`count_work`, ksw_h2d_bytes,
+    ksw_d2h_bytes)."""
     del interpret, quantize, backtrack
     return _batch_async(jobs, mat, gap_params(q, e, q2, e2, False),
-                        splice=False, noncan=0, device=device)
+                        splice=False, noncan=0, device=device, timers=timers)
 
 
 def exts2_batch(jobs, mat, q, e, q2, noncan, interpret=False,
-                quantize=False, backtrack="host", device="cuda"):
+                quantize=False, backtrack="host", device="cuda", timers=None):
     """Batched ksw_exts2: exts2_batch_async run to its end."""
     return exts2_batch_async(jobs, mat, q, e, q2, noncan,
                              interpret=interpret, quantize=quantize,
-                             backtrack=backtrack, device=device)()()
+                             backtrack=backtrack, device=device,
+                             timers=timers)()()
 
 
 def exts2_batch_async(jobs, mat, q, e, q2, noncan, interpret=False,
-                      quantize=False, backtrack="host", device="cuda"):
+                      quantize=False, backtrack="host", device="cuda",
+                      timers=None):
     """Batched splice extension with ksw2_splice.exts2's per-job
-    semantics (unbanded); jobs are dicts (qseq, tseq, zdrop, flag)."""
+    semantics (unbanded); jobs are dicts (qseq, tseq, zdrop, flag).
+    `timers` as extd2_batch_async's."""
     del interpret, quantize, backtrack
     return _batch_async(jobs, mat, gap_params(q, e, q2, 0, True),
-                        splice=True, noncan=noncan, device=device)
+                        splice=True, noncan=noncan, device=device,
+                        timers=timers)

@@ -268,11 +268,6 @@ def _run(args, ref_fa, target, work):
                           f"steal_reads={c.get('steal_device_reads', 0)} "
                           f"steal_chunks={c.get('steal_chunks', 0)} "
                           f"steal_cpu_ms={c.get('steal_cpu_ms', 0)} "
-                          f"steal_prep_ms={c.get('steal_cpu_prep_ms', 0)} "
-                          f"steal_flowhost_ms="
-                          f"{c.get('steal_cpu_flowhost_ms', 0)} "
-                          f"steal_finish_ms="
-                          f"{c.get('steal_cpu_finish_ms', 0)} "
                           f"steal_paused={c.get('steal_paused', 0)} "
                           f"steal_probe={c.get('steal_probe', 0)}",
                           file=sys.stderr)

@@ -91,12 +91,12 @@ def record():
                 rec.ksw_n = (cells, list(jobs), splice, noncan)
         return pk
 
-    def batch(jobs, mat, gaps, *, splice, noncan, device):
+    def batch(jobs, mat, gaps, *, splice, noncan, device, timers=None):
         with rec._lock:
             rec.scoring[splice] = ksw2_ext.forward_scoring(mat, gaps,
                                                            splice=splice)
         return real_batch(jobs, mat, gaps, splice=splice, noncan=noncan,
-                          device=device)
+                          device=device, timers=timers)
 
     for m in sites:
         m.chain_scores_batch = chain_at(m)

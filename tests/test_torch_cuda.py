@@ -493,3 +493,76 @@ def test_asm_ksw_jobs_on_card(cuda, preset):
     pk, ts, kw = ksw_inputs(jobs, (o.q, o.e, o.q2, o.e2, o.a, o.b), False,
                             cuda)
     assert compare_ksw(f"{preset} 2-6 kb", pk, ts, kw, reps=1)["err"] == 0
+
+
+def test_spans_on_the_device_trace_clock(cuda):
+    """One clock with the device trace: a span on a worker thread wraps a
+    torch.cuda._sleep of about 20 ms and its synchronize, inside a
+    device_wait child; put on the profiler's clock through two anchors
+    (the start of a record_function on the main thread before and after,
+    each paired with the midpoint of perf_counter_ns read around its
+    enter), the kernel's CUPTI interval lies inside the span's within 0.2
+    ms at each end, and device_wait ends at or after the kernel's end."""
+    import threading
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from minimap2_chaindp_tpu_torch.utils.trace import Tracer, clock_map
+
+    def at(ev, what):
+        for unit, scale in (("ns", 1), ("us", 1000)):
+            fn = getattr(ev, f"{what}_{unit}", None)
+            if fn is not None:
+                return int(fn()) * scale
+        raise AttributeError(what)
+
+    def anchor(name):
+        rf = record_function(name)
+        a = time.perf_counter_ns()
+        rf.__enter__()
+        b = time.perf_counter_ns()
+        rf.__exit__(None, None, None)
+        return (a + b) // 2
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    tr = Tracer()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        anchor("warm")       # the first enter and exit resolve their ops
+        p0 = anchor("anchor0")
+        tr.start_trace()
+
+        def work():
+            torch.cuda._sleep(1000)   # the thread's first launch, untimed
+            torch.cuda.synchronize()
+            with tr.time("map_batch"):
+                torch.cuda._sleep(40_000_000)     # about 20 ms at 1.98 GHz
+                with tr.time("device_wait"):
+                    torch.cuda.synchronize()
+        t = threading.Thread(target=work)
+        t.start()
+        t.join(60)
+        assert not t.is_alive()
+        spans = {s.name: s for s in tr.stop_trace()}
+        p1 = anchor("anchor1")
+    evs = prof.profiler.kineto_results.events()
+    starts = {e.name(): at(e, "start") for e in evs
+              if e.device_type() != DeviceType.CUDA
+              and e.name() in ("anchor0", "anchor1")}
+    to_trace = clock_map((p0, starts["anchor0"]), (p1, starts["anchor1"]))
+    ks = [(at(e, "start"), at(e, "start") + at(e, "duration"))
+          for e in evs if e.device_type() == DeviceType.CUDA
+          and at(e, "duration") > 5_000_000]
+    assert len(ks) == 1, ks
+    k0, k1 = ks[0]
+    s, dw = spans["map_batch"], spans["device_wait"]
+    s0, s1 = to_trace(s.start_ns), to_trace(s.end_ns)
+    tol = 200_000      # 0.2 ms
+    why = dict(span=(s0 - k0, s1 - k1), wait_end=to_trace(dw.end_ns) - k1,
+               kernel=(k0, k1), anchors=((p0, starts["anchor0"]),
+                                         (p1, starts["anchor1"])))
+    assert s0 - tol <= k0 <= s0 + tol, why
+    assert s1 - tol <= k1 <= s1 + tol, why
+    assert to_trace(dw.end_ns) >= k1, why
+    assert dw.thread == s.thread != threading.get_ident()

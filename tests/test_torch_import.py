@@ -67,6 +67,7 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.utils.route_sweep",
     "minimap2_chaindp_tpu_torch.utils.synth",
     "minimap2_chaindp_tpu_torch.utils.timers",
+    "minimap2_chaindp_tpu_torch.utils.trace",
 )
 
 # printed by the subprocess: the modules it must not have loaded

@@ -176,7 +176,8 @@ def test_steal_lane_steals(lanes, monkeypatch):
         mapped = [i for lane in ("host", "dev") for f, i in record[lane]
                   if f == id(b)]
         assert sorted(mapped) == list(range(N_STEAL))
-    assert "steal_cpu_prep_ms" in c and "steal_cpu_finish_ms" in c
+    assert rt.timers.n["steal_prep"] == rt.timers.n["steal_finish"] \
+        == c["steal_chunks"]
 
 
 def test_steal_device_error_propagates(lanes, monkeypatch):
