@@ -13,7 +13,8 @@ Phases, each printing its own lines:
      forward and walk kernels and ksw_forward_ref / ksw_walk_ref on
      ksw_cases() (every ez column, every step code, fin (i, j, k)), whose
      last cases hold base code 4 (N, IUPAC) in queries and targets
-     (ambiguous_ksw_cases);
+     (ambiguous_ksw_cases); the splice-signal kernel and
+     splice_signal_ref on splice_signal_waves() and a cDNA-sized wave;
   4. the fused flow end to end: a synthetic 250 Mbp genome (125 x 2 Mbp
      contigs, cached under build/smoke/), its index built once under
      map-ont with the CSR tables on the card, 1000 simulated 10 kb reads at
@@ -128,9 +129,12 @@ are processes of their own, but in a 1 x I mesh rank 0 runs every chain (the ind
 rank of a data row chains it, models/device_pipeline.py).
 Before the last two lines, a JSON line {"timing": ...} gives each
 phase's wall seconds (phase_s) and the seconds of the plain versions'
-comparison runs by phase (plain_s: chain, ksw_forward, ksw_walk) and
+comparison runs by phase (plain_s: chain, ksw_forward, ksw_walk,
+splice_signal) and
 summed (plain_total_s).
-The second-to-last line is the kernels' JSON record, the last line
+The second-to-last line is the kernels' JSON record (ksw_splice_signal
+replaces no TPU kernel: the JAX package packs the signal on the host; its
+max_abs_err is 0, as every check of it is bit-exact or fails), the last line
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 
 Usage: python3 chip_smoke.py      (no arguments; the workload is fixed below)
@@ -663,6 +667,82 @@ def ambiguous_ksw_cases(max_len=300, n_ext=18, n_flags=4):
     return cases
 
 
+def splice_signal_waves(seed=0):
+    """(name, jobs, noncan) of mixed exts2 waves for the splice-signal
+    kernel, under noncan 0, 9 and 15: each target of 1 to 40 bases, at a
+    multiple of 16 and one either side (47 to 129), GT/AG-rich of 3000
+    bases (with code 4), under every splice flag set (none, FOR, REV, both,
+    each with and without FLANK, and FLANK alone), beside RIGHT,
+    score-only, extz-only, reversed-CIGAR and approximate-maximum jobs."""
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    rng = np.random.default_rng(seed)
+    F, R, L = K.KSW_EZ_SPLICE_FOR, K.KSW_EZ_SPLICE_REV, \
+        K.KSW_EZ_SPLICE_FLANK
+    flags = [s | fl for s in (0, F, R, F | R) for fl in (0, L)]
+    other = (0, K.KSW_EZ_RIGHT, K.KSW_EZ_SCORE_ONLY,
+             K.KSW_EZ_EXTZ_ONLY | K.KSW_EZ_REV_CIGAR, K.KSW_EZ_APPROX_MAX)
+    lens = list(range(1, 41)) + [16 * k + d for k in range(3, 9)
+                                 for d in (-1, 0, 1)]
+    targets = [rng.integers(0, 4, n).astype(np.uint8) for n in lens]
+    targets += [rng.choice(np.arange(5, dtype=np.uint8), 3000,
+                           p=[0.3, 0.18, 0.3, 0.18, 0.04]) for _ in range(3)]
+    waves = []
+    for noncan in (0, 9, 15):
+        jobs = [dict(qseq=rng.integers(0, 4, int(rng.integers(1, 60)))
+                     .astype(np.uint8), tseq=t, zdrop=200, end_bonus=-1,
+                     w=-1, flag=f | other[(i + k) % len(other)])
+                for i, t in enumerate(targets) for k, f in enumerate(flags)]
+        waves.append((f"signal wave, noncan {noncan}", jobs, noncan))
+    return waves
+
+
+def splice_signal_cdna_wave(seed=0, n_jobs=2400):
+    """(name, jobs, noncan): an exts2 wave of cDNA size (2400 jobs,
+    targets log-normal about 860 bases, up to 16384, GT/AG-rich), every
+    job under FOR|REV, as -x splice gives them."""
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    rng = np.random.default_rng(seed)
+    lens = np.clip(rng.lognormal(6.5, 0.9, n_jobs), 1, 16384).astype(int)
+    lens[:4] = (16384, 16383, 16369, 1)
+    jobs = [dict(qseq=rng.integers(0, 4, int(rng.integers(50, 400)))
+                 .astype(np.uint8),
+                 tseq=rng.choice(np.arange(4, dtype=np.uint8), int(n),
+                                 p=[0.3, 0.2, 0.3, 0.2]),
+                 zdrop=200, end_bonus=-1, w=-1,
+                 flag=K.KSW_EZ_SPLICE_FOR | K.KSW_EZ_SPLICE_REV)
+            for n in lens]
+    return f"cdna-sized signal wave, {n_jobs} jobs", jobs, 9
+
+
+def compare_splice_signal(name, jobs, noncan, reps=11, phase=3):
+    """The splice-signal kernel against its plain version
+    (ksw2_pack.donor_acceptor job by job): bit-exact; its CUDA-event time
+    and bound. Returns dict(ms, plain_ms, bound_ms, bound_by, jobs,
+    positions)."""
+    import torch
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
+    pk = KPK.pack_jobs(jobs, splice=True, noncan=noncan)
+    ts = KE.device_inputs(pk, "cuda", splice=True)
+    sig = lambda: KE.splice_signal(ts["tseq"], ts["meta"],
+                                   t_total=pk["t_total"], noncan=noncan)
+    want, plain_ms = _timed(lambda: KE.splice_signal_ref(
+        ts["tseq"], ts["meta"], t_total=pk["t_total"], noncan=noncan))
+    _plain_took("splice_signal", plain_ms)
+    check(torch.equal(ts["dac"], want), f"{name}: the splice signal "
+          "kernel differs from the plain version")
+    ms = _time_ms(sig, reps)
+    # each target base read once, two bytes written a position of its slot
+    n_bytes = sum(len(j["tseq"]) for j in jobs) + 2 * pk["t_total"]
+    bound_ms = n_bytes / HBM_BYTES_S * 1e3
+    log(f"phase {phase} {name}: {len(jobs)} jobs, {pk['t_total']} target "
+        f"positions, bit-exact against the plain version; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.5f} ms by "
+        f"hbm ({n_bytes} B), share {bound_ms / ms:.1%}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="hbm",
+                jobs=len(jobs), positions=pk["t_total"])
+
+
 def ksw_cases():
     """(name, jobs, scoring, splice) for the ksw kernel checks; scoring is
     (q, e, q2, e2 or noncan, a, b) from the presets. The last cases are
@@ -742,12 +822,18 @@ def ksw_inputs(jobs, scoring, splice, device):
 
 def packed_ksw_inputs(jobs, fwd_scoring, splice, noncan, device):
     """ksw_inputs for jobs whose forward wrapper's `scoring` is known (as
-    utils/kernel_inputs.py keeps it)."""
+    utils/kernel_inputs.py keeps it). On a card the splice signal comes
+    from its kernel, checked here against the plain version."""
     import torch
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
     from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
-    from minimap2_chaindp_tpu_torch.ops.ksw2_ext import TENSOR_KEYS
     pk = KPK.pack_jobs(jobs, splice=splice, noncan=noncan)
-    ts = {k: torch.from_numpy(pk[k]).to(device) for k in TENSOR_KEYS}
+    ts = KE.device_inputs(pk, device, splice=splice)
+    if splice and ts["meta"].device.type == "cuda":
+        want = KE.splice_signal_ref(ts["tseq"], ts["meta"],
+                                    t_total=pk["t_total"], noncan=noncan)
+        check(torch.equal(ts["dac"], want), f"the splice signal kernel "
+              f"differs from the plain version on {len(jobs)} jobs")
     kw = dict(groups=pk["groups"], scoring=tuple(fwd_scoring),
               splice=splice, p_bytes=pk["p_bytes"], t_total=pk["t_total"],
               band_max=pk["band_max"], rows_max=pk["rows_max"])
@@ -802,8 +888,10 @@ def ksw_bounds(pk, ez_h, splice):
             per_cell -= KSW_OPS_CIGAR[splice]
         cells += n
         n_ops += n * per_cell
-    n_in = sum(pk[k].nbytes for k in ("tseq", "qrev", "dac", "meta", "poff",
-                                      "order"))
+    # the uploaded arrays, and the splice signal the forward reads
+    n_in = sum(pk[k].nbytes for k in ("tseq", "qrev", "meta", "poff",
+                                      "order")) + (2 * pk["t_total"]
+                                                   if splice else 0)
     fwd = _bound(n_in + p_out + ez_h.nbytes, n_ops)
     steps = ez_h[:, KPK.C_FIN_K].astype(np.int64)
     walk = _bound(2 * int(steps.sum()) + meta.nbytes + ez_h.nbytes,
@@ -859,7 +947,7 @@ def compare_ksw(name, pk, ts, kw, reps=5, phase=3):
     import torch
     from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
     from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
-    args = [ts[k] for k in KE.TENSOR_KEYS]
+    args = [ts[k] for k in KE.FORWARD_KEYS]
     wkw = dict(splice=kw["splice"], ops_total=pk["ops_total"])
     planned = [g["variant"] for g in kw["groups"]]
     before = (dict(KE.ksw_forward.by_variant), KE.ksw_walk.launches)
@@ -881,8 +969,12 @@ def compare_ksw(name, pk, ts, kw, reps=5, phase=3):
     _plain_took("ksw_walk", walk_plain)
     if PLAIN_PARENT is not None:
         PK = PLAIN_PARENT
+        # a parent may read the signal in extd2 too: a zero one there
+        par_args = [torch.zeros(pk["t_total"], dtype=torch.int16,
+                                device=ts["meta"].device)
+                    if a is None else a for a in args[:5]]
         (p_par, ez_par), par_ms = _timed(lambda: PK.ksw_forward_ref(
-            *args[:5], **{k: v for k, v in kw.items() if k != "groups"}))
+            *par_args, **{k: v for k, v in kw.items() if k != "groups"}))
         ez_parw = ez.clone()
         ops_par, par_walk = _timed(lambda: PK.ksw_walk_ref(
             p, ts["poff"], ts["meta"], ez_parw, **wkw))
@@ -1003,7 +1095,11 @@ def phase_kernels():
         forced |= set(res["variant_ms"])
     check(forced == set(KPK.VARIANTS), "phase 3 did not launch every "
           f"forward variant: {sorted(forced)}")
-    return worst, bench
+    # the signal kernel; the cDNA-sized wave, last, is its record
+    for name, jobs, noncan in [*splice_signal_waves(),
+                               splice_signal_cdna_wave()]:
+        sig = compare_splice_signal(name, jobs, noncan)
+    return worst, bench, sig
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1013,6 +1109,7 @@ def _reset_launches():
     TD.chain_scores_batch.launches = 0
     TD.chain_scores_batch.by_form = dict.fromkeys(TD.FORMS, 0)
     KE.ksw_forward.launches = KE.ksw_walk.launches = 0
+    KE.splice_signal.launches = 0
     KE.ksw_forward.by_variant = dict.fromkeys(KE.ksw_forward.by_variant, 0)
 
 
@@ -1020,7 +1117,8 @@ def _read_launches():
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
     from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
     return dict(chain=TD.chain_scores_batch.launches,
-                ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches)
+                ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches,
+                signal=KE.splice_signal.launches)
 
 
 def _cached(path, make, *more):
@@ -1270,6 +1368,7 @@ def _staged_run(phase, mi, mo, batches):
     input of each, the largest ksw launch input, the times and the peak
     device memory."""
     import torch
+    from minimap2_chaindp_tpu_torch import constants as C
     from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
     from minimap2_chaindp_tpu_torch.models import runtime as RT
     from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
@@ -1322,6 +1421,7 @@ def _staged_run(phase, mi, mo, batches):
     rec.update(chain=TD.chain_scores_batch.launches,
                chain_by_form=dict(TD.chain_scores_batch.by_form),
                ksw=KE.ksw_forward.launches, walk=KE.ksw_walk.launches,
+               signal=KE.splice_signal.launches,
                by_variant=dict(KE.ksw_forward.by_variant),
                peak=torch.cuda.max_memory_allocated(), t_host=t_host,
                t_port=t_port)
@@ -1341,7 +1441,7 @@ def _staged_run(phase, mi, mo, batches):
     log(f"phase {phase} extension jobs: {ex.n_device} on the card, "
         f"{ex.n_native} native, {ex.n_host} numpy model; ksw forward "
         f"launches {rec['ksw']} {rec['by_variant']}, walk launches "
-        f"{rec['walk']} (p budget "
+        f"{rec['walk']}, splice signal launches {rec['signal']} (p budget "
         f"{KE.P_BUDGET} B per launch); chain kernel launches "
         f"{rec['chain']} {rec['modes']} {rec['chain_by_form']}")
     log(f"phase {phase} port stages (host wall clock): "
@@ -1349,6 +1449,8 @@ def _staged_run(phase, mi, mo, batches):
     log(f"phase {phase} device memory: max_memory_allocated {rec['peak']} B")
     check(rec["ksw"] > 0 and rec["walk"] > 0,
           f"phase {phase}: the ksw kernels were not launched")
+    check((rec["signal"] > 0) == bool(mo.flag & C.MM_F_SPLICE),
+          f"phase {phase}: {rec['signal']} splice signal launches")
     for v in sorted(rec["planned"]):
         check(rec["by_variant"][v] > 0, f"phase {phase}: the waves held "
               f"jobs for the {v} forward variant, which never launched")
@@ -1461,7 +1563,8 @@ def _lane_run(label, mi, mo, batches, host_lines, t_host, **kw):
         f"{n / t_host:.1f} (-t {THREADS}); "
         + " ".join(f"{k}={c.get(k, 0)}" for k in LANE_COUNTERS)
         + f"; launches chain {launches['chain']}, ksw2 {launches['ksw']}, "
-        f"walk {launches['walk']}; lane CPU {cpu}")
+        f"walk {launches['walk']}, signal {launches['signal']}; lane CPU "
+        f"{cpu}")
     log(f"phase 7 {label} stages (host wall clock): {rt.timers.summary()}")
     return dict(label=label, rate=n / dt, host_rate=n / t_host, seconds=dt,
                 counters=c, launches=launches)
@@ -2141,7 +2244,7 @@ def _p10_run(label, mi, mo, batches):
         f"{n / t_host:.1f} ({t_host:.2f} s), -t {THREADS}; "
         + " ".join(f"{k}={c.get(k, 0)}" for k in P10_COUNTERS)
         + f"; launches chain {launches['chain']}, ksw2 {launches['ksw']}, "
-        f"walk {launches['walk']}")
+        f"walk {launches['walk']}, signal {launches['signal']}")
     log(f"phase 10 {label} stages (host wall clock): {rt.timers.summary()}")
     return dict(rate=n / t_port, host_rate=n / t_host, frags=n,
                 counters={k: c.get(k, 0) for k in P10_COUNTERS},
@@ -2251,7 +2354,7 @@ def _p10_options():
               f"{err.getvalue()[-2000:]}")
         return [ln for ln in out.getvalue().split("\n")
                 if not ln.startswith("@PG")], err.getvalue()
-    tot = dict(chain=0, ksw=0, walk=0)
+    tot = dict(chain=0, ksw=0, walk=0, signal=0)
     res, checks, seen = {}, {}, {}
     for name, opts, q in OPTION_CASES:
         host, _e = run(["--device", "host", *opts, *files[q]])
@@ -2271,8 +2374,8 @@ def _p10_options():
         log(f"phase 10 option {name} ({' '.join(opts)}): "
             f"{res[name]['records']} records, equal to --device host; "
             f"launches chain {n['chain']}, ksw2 {n['ksw']}, walk "
-            f"{n['walk']}; " + " ".join(f"{k}={c.get(k, 0)}"
-                                        for k in P10_COUNTERS))
+            f"{n['walk']}, signal {n['signal']}; "
+            + " ".join(f"{k}={c.get(k, 0)}" for k in P10_COUNTERS))
         chain, ksw = checks[f"opt_{name}"] = _p10_check_kept(
             f"option {name}", kept, seen)
         check(bool(chain) == (n["chain"] > 0)
@@ -2560,8 +2663,8 @@ def phase_genome(inputs=None):
             f"({t_host:.2f} s), -t {THREADS}; chain device share "
             f"{share:.1%}; " + " ".join(f"{k}={v}" for k, v in c.items())
             + f"; launches chain {launches['chain']}, ksw2 "
-            f"{launches['ksw']}, walk {launches['walk']}; "
-            f"max_memory_allocated {peak} B")
+            f"{launches['ksw']}, walk {launches['walk']}, signal "
+            f"{launches['signal']}; max_memory_allocated {peak} B")
         log(f"phase 11 {routing} stages (host wall clock): "
             f"{rt.timers.summary()}")
         runs[routing] = dict(rate=n / dt, host_rate=n / t_host,
@@ -2584,7 +2687,7 @@ def phase_genome(inputs=None):
     gc.collect()
     torch.cuda.empty_cache()
     launches = {k: sum(r["launches"][k] for r in runs.values())
-                for k in ("chain", "ksw", "walk")}
+                for k in ("chain", "ksw", "walk", "signal")}
     secs = time.perf_counter() - t_phase
     log(f"phase 11 done in {secs:.1f} s; launches {launches}; the "
         f"{mbp:.0f} Mbp tables freed (memory_allocated "
@@ -2813,7 +2916,8 @@ def phase_masked(inputs=None, ref=None):
                 f"({t_host:.2f} s), -t {THREADS}; chain device share "
                 f"{share:.1%}; " + " ".join(f"{k}={v}" for k, v in c.items())
                 + f"; launches chain {launches['chain']}, ksw2 "
-                f"{launches['ksw']}, walk {launches['walk']}")
+                f"{launches['ksw']}, walk {launches['walk']}, signal "
+                f"{launches['signal']}")
             if kind == "ont" and routing == "device":
                 check(share >= 0.9, f"phase 12 {label}: the chain kernel "
                       f"chained {share:.1%} of the reads (< 90%)")
@@ -2838,10 +2942,13 @@ def phase_masked(inputs=None, ref=None):
           "code-4 base")
     check(runs["ont_device"]["launches"]["chain"] > 0
           and runs["splice_device"]["launches"]["ksw"] > 0
+          and runs["splice_device"]["launches"]["signal"] > 0
           and runs["sr_device"]["launches"]["ksw"] > 0,
           "phase 12: a device run launched none of its kernels")
+    check(runs["sr_device"]["launches"]["signal"] == 0,
+          "phase 12 sr_device: an extd2 wave launched the splice signal")
     launches = {k: sum(r["launches"][k] for r in runs.values())
-                for k in ("chain", "ksw", "walk")}
+                for k in ("chain", "ksw", "walk", "signal")}
     secs = time.perf_counter() - t_phase
     log(f"phase 12 done in {secs:.1f} s; launches {launches}; {n_code4} "
         "runs' code-4 extension launches bit-exact; checks "
@@ -3000,7 +3107,7 @@ def main() -> int:
         p11_inputs = _p11_start()
         card = run_phase("1", phase_env)
         build_s = run_phase("2", phase_build)
-        worst, bench = run_phase("3", phase_kernels)
+        worst, bench, sig = run_phase("3", phase_kernels)
         e2e = run_phase("4", phase_e2e)
         p12_inputs = _p12_start(e2e["ref"])
         spl = run_phase("5", phase_splice, e2e["ref"])
@@ -3161,7 +3268,18 @@ def main() -> int:
                                 "plain_ms": r["walk_plain_ms"],
                                 "bound_ms": r["walk_bound_ms"],
                                 "bound_by": r["walk_bound_by"]}
-                            for k, r in ksw12.items()}}]}))
+                            for k, r in ksw12.items()}},
+        {"name": "ksw_splice_signal", "route": "cuda", "source": KSW_SOURCE,
+         "replaces": None,
+         "launches": spl["signal"] + pe["signal"] + n10["signal"]
+         + n11["signal"] + n12["signal"],
+         "launches_phase10": n10["signal"],
+         "launches_phase11": n11["signal"],
+         "launches_phase12": n12["signal"],
+         "max_abs_err": 0, "ms": sig["ms"], "plain_ms": sig["plain_ms"],
+         "bound_ms": sig["bound_ms"], "bound_by": sig["bound_by"],
+         "library_ms": None, "jobs": sig["jobs"],
+         "positions": sig["positions"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

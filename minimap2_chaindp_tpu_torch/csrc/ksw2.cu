@@ -69,6 +69,13 @@
 // two barriers per 512-lane chunk: it serves jobs whose ring exceeds
 // shared memory (the shorter sequence over 16352 bases), chosen by size.
 //
+// ksw_splice_signal_kernel computes an exts2 wave's donor/acceptor signal
+// (ops/ksw2_pack.py:donor_acceptor, ksw2_exts2_sse.c:112-131) from the
+// targets already on the card, which the host once built job by job.  It
+// replaces no TPU kernel.  Bound by bytes: a six-base stencil, three reads
+// of the job's own target for each of 2 bytes written; a block per job,
+// threads striding over the job's slot, the slack included.
+//
 // What the walk design does: a warp per job.  32 steps move at most 64
 // rows down and 32 columns left, so the warp fetches that 64 x 32 window
 // of p in one round of independent coalesced loads into shared memory,
@@ -104,8 +111,13 @@ constexpr int kTailOrder = kKeyLaneMask;  // after every lane-of-4 column
 // meta columns (ops/ksw2_pack.py)
 enum {
   M_QLEN, M_TLEN, M_W, M_ZDROP, M_RIGHT, M_APPROX, M_ADROP, M_EXTZ,
-  M_SCONLY, M_ENDB, M_NCOL, M_TOFF, M_QOFF, M_OPOFF
+  M_SCONLY, M_ENDB, M_NCOL, M_TOFF, M_QOFF, M_OPOFF, M_LANES, M_SPLICE
 };
+// ops/ksw2_pack.py T_PAD: each job's target slot is tlen16 + kTPad bytes
+constexpr int kTPad = 32;
+constexpr int kSignalThreads = 256;
+// ksw2.h's splice flags (meta[M_SPLICE])
+constexpr int kSpliceFor = 0x100, kSpliceRev = 0x200, kSpliceFlank = 0x400;
 // ez columns (ops/ksw2_pack.py C_*)
 enum {
   C_MAX = 2, C_MAX_T, C_MAX_Q, C_MQE, C_MQE_T, C_MTE, C_MTE_Q, C_SCORE,
@@ -922,6 +934,41 @@ __global__ void __launch_bounds__(kWalkWarps * 32)
   }
 }
 
+// The splice signal of job blockIdx.x over its slot [toff, toff + tlen16 +
+// kTPad) of `dac`: donor (low byte) and acceptor (high byte) at each of its
+// tlen16 positions, 0 in the slack.  Only the job's own bases are read: a
+// donor at t < tlen - 4 reads s[t+1..t+3], an acceptor at 2 <= t < tlen
+// reads s[t-2..t].
+__global__ void __launch_bounds__(kSignalThreads)
+    ksw_splice_signal_kernel(const uint8_t* __restrict__ tseq,
+                             const int* __restrict__ meta,
+                             int16_t* __restrict__ dac, int noncan) {
+  const int* m = meta + static_cast<size_t>(blockIdx.x) * kMetaCols;
+  const int tlen = m[M_TLEN], flag = m[M_SPLICE];
+  const int tlen16 = (tlen + 15) / 16 * 16;
+  const uint8_t* s = tseq + static_cast<size_t>(m[M_TOFF]);
+  int16_t* out = dac + static_cast<size_t>(m[M_TOFF]);
+  const bool fwd = flag & kSpliceFor, rev = flag & kSpliceRev;
+  const int off = fwd || rev ? -noncan : 0;
+  const int semi = flag & kSpliceFlank ? -noncan / 2 : 0;
+  for (int t = threadIdx.x; t < tlen16 + kTPad; t += blockDim.x) {
+    int donor = off, acceptor = off;
+    if (t < tlen - 4) {  // GT (forward) or CT (reverse) at t + 1
+      const int b1 = s[t + 1], b2 = s[t + 2], b3 = s[t + 3];
+      if ((fwd && b1 == 2 && b2 == 3) || (rev && b1 == 1 && b2 == 3))
+        donor = b3 == 0 || b3 == 2 ? 0 : semi;
+    }
+    if (t >= 2 && t < tlen) {  // AG (forward) or AC (reverse) ending at t
+      const int b0 = s[t], b1 = s[t - 1], b2 = s[t - 2];
+      if ((fwd && b1 == 0 && b0 == 2) || (rev && b1 == 0 && b0 == 1))
+        acceptor = b2 == 1 || b2 == 3 ? 0 : semi;
+    }
+    out[t] = t < tlen16 ? static_cast<int16_t>(static_cast<uint16_t>(
+                              (donor & 0xFF) | (acceptor & 0xFF) << 8))
+                        : static_cast<int16_t>(0);
+  }
+}
+
 // Opts the shared-memory kernel in to the most dynamic shared memory any of
 // its launches asks for (kSmemMax), once per instantiation and device.  The
 // attribute belongs to the kernel, not to the launch, and launches come
@@ -982,6 +1029,18 @@ extern "C" int mm2tpu_ksw_forward(
   const cudaError_t rc = allow_smem(kern, splice ? 1 : 0);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   kern<<<n_jobs, threads, smem, s>>>(P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The splice signal of an exts2 wave's n_jobs jobs (meta rows 0..n_jobs-1)
+// into `dac`, which holds every job's slot.
+extern "C" int mm2tpu_ksw_splice_signal(const uint8_t* tseq, const int* meta,
+                                        int16_t* dac, int n_jobs, int noncan,
+                                        void* stream) {
+  if (n_jobs <= 0) return 0;
+  ksw_splice_signal_kernel<<<n_jobs, kSignalThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      tseq, meta, dac, noncan);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -119,6 +119,8 @@ def load() -> ctypes.CDLL:
             lib.mm2tpu_ksw_forward.restype = ci
             lib.mm2tpu_ksw_forward.argtypes = ([vp] * 10 + [ctypes.c_longlong]
                                                + [ci] * 14 + [vp])
+            lib.mm2tpu_ksw_splice_signal.restype = ci
+            lib.mm2tpu_ksw_splice_signal.argtypes = [vp] * 3 + [ci] * 2 + [vp]
             lib.mm2tpu_ksw_walk.restype = ci
             lib.mm2tpu_ksw_walk.argtypes = [vp] * 6 + [ci] * 2 + [vp]
             _lib = lib

@@ -10,7 +10,9 @@ versions run. `interpret`, `quantize` and `backtrack` are accepted and
 change nothing: the CIGAR always comes from the walk, run where the
 forward pass ran, so `p` never leaves the device.
 
-Two wrappers launch the kernels. `ksw_forward` runs the anti-diagonal DP,
+Three wrappers launch the kernels. `splice_signal` computes an exts2
+wave's donor/acceptor signal from the uploaded targets, a block per job.
+`ksw_forward` runs the anti-diagonal DP,
 writing each job's backtrack bytes `p` in the reference's flat layout and
 its ez row: `ksw2_pack.launch_plan` makes the call one block-per-job
 launch with the rows in shared memory, plus a launch with the rows in
@@ -32,14 +34,18 @@ from . import ksw2 as K
 from .ksw2_pack import (C_FIN_I, C_FIN_J, C_FIN_K, C_MAX, C_MAX_Q, C_MAX_T,
                         C_MQE, C_MQE_T, C_MTE, C_MTE_Q, C_SCORE, C_ZDROP,
                         EZ_COLS, M_ADROP, M_APPROX, M_ENDB, M_EXTZ, M_NCOL,
-                        M_OPOFF, M_QLEN, M_QOFF, M_RIGHT, M_SCONLY, M_TLEN,
-                        M_TOFF, M_W, M_ZDROP, _decode_walk, _ez_from_row,
-                        gap_params, n_col_of, pack_jobs, split_by_budget)
+                        M_OPOFF, M_QLEN, M_QOFF, M_RIGHT, M_SCONLY, M_SPLICE,
+                        M_TLEN, M_TOFF, M_W, M_ZDROP, _decode_walk,
+                        _ez_from_row, donor_acceptor, gap_params, n_col_of,
+                        pack_jobs, split_by_budget)
 from ..utils.trace import active
 
 P_BUDGET = 2 << 30      # backtrack bytes per forward launch
-# pack_jobs' arrays that go to the device, in the wrappers' argument order
-TENSOR_KEYS = ("tseq", "qrev", "dac", "meta", "poff", "order")
+# pack_jobs' arrays that go to the device
+TENSOR_KEYS = ("tseq", "qrev", "meta", "poff", "order")
+# ksw_forward's tensors, in its argument order: the uploaded arrays and the
+# splice signal computed on the device from them (`device_inputs`)
+FORWARD_KEYS = ("tseq", "qrev", "dac", "meta", "poff", "order")
 _launch_lock = threading.Lock()   # map_stream launches from two threads
 
 
@@ -68,15 +74,55 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def device_inputs(pk, dev, *, splice):
+    """pack_jobs' arrays `pk` as tensors on `dev`, and the splice signal
+    `dac` computed there from them, on the upload's stream (`splice_signal`;
+    None for extd2): the tensors of FORWARD_KEYS, by name."""
+    ts = {k: torch.from_numpy(pk[k]).to(dev) for k in TENSOR_KEYS}
+    ts["dac"] = splice_signal(ts["tseq"], ts["meta"], t_total=pk["t_total"],
+                              noncan=pk["noncan"]) if splice else None
+    return ts
+
+
+def splice_signal(tseq, meta, *, t_total, noncan):
+    """The splice signal of every job of an exts2 wave: dac int16
+    (t_total,), each job's donor (low byte) and acceptor (high byte) at
+    meta[M_TOFF] over its tlen16 positions, packed as
+    ksw2_pallas.py:1053-1055, from its target in `tseq` and its
+    meta[M_SPLICE] flags (ksw2_pack.donor_acceptor, job by job); 0 in
+    each job's T_PAD slack. CUDA tensors launch the kernel, a block per
+    job; CPU tensors run `splice_signal_ref`."""
+    if not _kernel_device(meta):
+        return splice_signal_ref(tseq, meta, t_total=t_total, noncan=noncan)
+    from ._build import load
+    lib = load()
+    dev = meta.device
+    dac = torch.empty(t_total, dtype=torch.int16, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.mm2tpu_ksw_splice_signal(
+            tseq.data_ptr(), meta.data_ptr(), dac.data_ptr(), meta.shape[0],
+            int(noncan), _stream(dev))
+    _check(rc, "ksw splice signal")
+    with _launch_lock:
+        splice_signal.launches += 1
+    return dac
+
+
+splice_signal.launches = 0
+
+
 def ksw_forward(tseq, qrev, dac, meta, poff, order, *, groups, scoring,
                 splice, p_bytes, t_total, band_max, rows_max):
     """Forward DP of every job in `meta`; returns (p, ez): p uint8
     (p_bytes,) the flat backtrack bytes, ez int32 (R, EZ_COLS).
     scoring = (q, e, q2, e2, mat0, sc_mis, sc_n, long_thres, long_diff)
-    after the gap-profile swap. Inputs are pack_jobs' arrays as tensors on
-    one device; `order` and `groups` are `launch_plan`'s. Each group is one
-    launch of its variant of the kernel on a CUDA device; on the CPU each
-    group runs through `ksw_forward_ref`."""
+    after the gap-profile swap. Inputs are `device_inputs`' tensors on one
+    device (`dac` is read only under splice, and may be None without it);
+    `order` and `groups` are `launch_plan`'s. Each group is one launch of
+    its variant of the kernel on a CUDA device; on the CPU each group runs
+    through `ksw_forward_ref`."""
+    if splice and dac is None:
+        raise ValueError("an exts2 launch needs its splice signal")
     on_card = _kernel_device(meta)
     dev = meta.device
     R = meta.shape[0]
@@ -104,7 +150,9 @@ def ksw_forward(tseq, qrev, dac, meta, poff, order, *, groups, scoring,
     for g in groups:
         with torch.cuda.device(dev):
             rc = lib.mm2tpu_ksw_forward(
-                *(t.data_ptr() for t in (tseq, qrev, dac, meta, poff)),
+                tseq.data_ptr(), qrev.data_ptr(),
+                dac.data_ptr() if splice else None,
+                meta.data_ptr(), poff.data_ptr(),
                 order.data_ptr() + 4 * g["start"],
                 state.data_ptr() if state is not None else None,
                 hrow.data_ptr() if hrow is not None else None,
@@ -284,7 +332,7 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
     tidx = (col(M_TOFF)[:, None] + lane).clamp(max=max(len(tseq) - 1, 0))
     tmask = lane < tsz[:, None]
     sf = torch.where(tmask, tseq.to(i64)[tidx], 0)
-    sig = torch.where(tmask, dac.to(i64)[tidx], 0)
+    sig = torch.where(tmask, dac.to(i64)[tidx], 0) if splice else None
     qlane = torch.arange(QW, dtype=i64, device=dev)[None, :]
     qr = torch.where(qlane < (qlen + 16)[:, None],
                      qrev.to(i64)[(col(M_QOFF)[:, None] + qlane)
@@ -495,7 +543,7 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
             (qlen, tlen, w, zdrop, ncol, cig, right, approx, adrop, nrows,
              poff, mx, mx_t, mx_q, mqe, mqe_t, mte, mte_q, score, zdropped,
              done, last_st, last_en, H0, h0t, sf, sig, qr, u, v, x, y, x2,
-             y2, s, H) = (a[:n] for a in (
+             y2, s, H) = (a if a is None else a[:n] for a in (
                  qlen, tlen, w, zdrop, ncol, cig, right, approx, adrop,
                  nrows, poff, mx, mx_t, mx_q, mqe, mqe_t, mte, mte_q, score,
                  zdropped, done, last_st, last_en, H0, h0t, sf, sig, qr, u,
@@ -508,6 +556,20 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
     ez_out = torch.empty_like(ez)
     ez_out[perm] = ez
     return p[:p_scratch], ez_out
+
+
+def splice_signal_ref(tseq, meta, *, t_total, noncan):
+    """Plain version of the splice-signal kernel on any device: each job's
+    `donor_acceptor` over its target in `tseq` under its meta[M_SPLICE]
+    flags, packed as the kernel packs it. Same output as `splice_signal`."""
+    ts = tseq.cpu().numpy()
+    dac = np.zeros(t_total, dtype=np.int16)
+    for to, tl, flag in meta[:, [M_TOFF, M_TLEN, M_SPLICE]].tolist():
+        donor, acceptor = donor_acceptor(ts[to:to + tl], noncan, flag)
+        dac[to:to + len(donor)] = ((donor.astype(np.int16) & 0xFF)
+                                   | ((acceptor.astype(np.int16) & 0xFF)
+                                      << 8))
+    return torch.from_numpy(dac).to(meta.device)
 
 
 def ksw_walk_ref(p, poff, meta, ez, *, splice, ops_total):
@@ -613,10 +675,10 @@ def _batch_async(jobs, mat, gaps, *, splice, noncan, device, timers=None):
         with span("ext_pack"):
             pk = pack_jobs(grp, splice=splice, noncan=noncan)
         with span("ext_upload"):
-            ts = {k: torch.from_numpy(pk[k]).to(dev) for k in TENSOR_KEYS}
+            ts = device_inputs(pk, dev, splice=splice)
         with span("ext_launch"):
             p, ez = ksw_forward(
-                *(ts[k] for k in TENSOR_KEYS), groups=pk["groups"],
+                *(ts[k] for k in FORWARD_KEYS), groups=pk["groups"],
                 scoring=scoring, splice=splice, p_bytes=pk["p_bytes"],
                 t_total=pk["t_total"], band_max=pk["band_max"],
                 rows_max=pk["rows_max"])
@@ -625,6 +687,7 @@ def _batch_async(jobs, mat, gaps, *, splice, noncan, device, timers=None):
         if counting:
             timers.count("ksw_h2d_bytes",
                          sum(pk[k].nbytes for k in TENSOR_KEYS))
+            timers.count("ksw_signal_jobs", len(grp) if splice else 0)
         staged.append((grp, pk, ez, ops))
 
     def collect_ez():
@@ -740,7 +803,8 @@ def extd2_batch_async(jobs, mat, q, e, q2, e2, interpret=False,
     collect_ez (see the module docstring). `timers`, when given, receives
     the spans ext_pack, ext_upload, ext_launch, device_wait and ext_decode
     and, in a trace, the launch work counters (`count_work`, ksw_h2d_bytes,
-    ksw_d2h_bytes)."""
+    ksw_d2h_bytes, ksw_signal_jobs: the jobs whose splice signal the
+    device computed)."""
     del interpret, quantize, backtrack
     return _batch_async(jobs, mat, gap_params(q, e, q2, e2, False),
                         splice=False, noncan=0, device=device, timers=timers)

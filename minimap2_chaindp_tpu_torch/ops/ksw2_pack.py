@@ -38,10 +38,13 @@ C_FIN_I, C_FIN_J, C_FIN_K = 20, 21, 22
 
 # the port's own meta columns: the C row stride of the job's backtrack
 # bytes (0 for score-only jobs), the offsets of its target/state, reversed
-# query and walk step codes in the ragged buffers, and the lanes its DP
-# rows need on chip (the widest aligned band plus the score block tail)
-M_NCOL, M_TOFF, M_QOFF, M_OPOFF, M_LANES = range(10, 15)
+# query and walk step codes in the ragged buffers, the lanes its DP rows
+# need on chip (the widest aligned band plus the score block tail), and the
+# job's splice-signal flags (SPLICE_BITS of its flag in exts2 waves, 0 in
+# extd2 waves), which the signal kernel reads
+M_NCOL, M_TOFF, M_QOFF, M_OPOFF, M_LANES, M_SPLICE = range(10, 16)
 META_COLS = 16
+SPLICE_BITS = K.KSW_EZ_SPLICE_FOR | K.KSW_EZ_SPLICE_REV | K.KSW_EZ_SPLICE_FLANK
 EZ_COLS = 24          # C_* state columns and the walk's fin (i, j, k)
 T_PAD = 32            # per-job target/state slack past tlen16 (s[] blocks)
 Q_PAD = 16            # per-job reversed-query slack (16-lane score loads)
@@ -105,10 +108,15 @@ def _decode_walk(jobs, out, ez_h, ops_h, *, splice, long_thres):
             int(ez_h[j, C_FIN_J]), rev, long_thres if splice else 0)
 
 
-def ring_of(lanes: int) -> int:
+def ring_of(lanes):
     """Lanes of the on-chip ring that holds a job's rows: the power of two
-    at or above `lanes` (meta[M_LANES]), at least RING_MIN."""
-    return _pow2_at_least(int(lanes), RING_MIN)
+    at or above `lanes` (meta[M_LANES]), at least RING_MIN; on an array of
+    lanes, the array of rings."""
+    lanes = np.asarray(lanes, dtype=np.int64)
+    ring = np.full(lanes.shape, RING_MIN, dtype=np.int64)
+    while (ring < lanes).any():
+        ring = np.where(ring < lanes, 2 * ring, ring)
+    return int(ring) if ring.ndim == 0 else ring
 
 
 def variant_of(lanes: int) -> str:
@@ -140,7 +148,7 @@ def launch_plan(meta: np.ndarray, force: str | None = None):
     R = len(meta)
     rows = meta[:, M_QLEN].astype(np.int64) + meta[:, M_TLEN] - 1
     by_len = np.argsort(-rows, kind="stable").astype(np.int32)
-    rings = np.array([ring_of(x) for x in meta[:, M_LANES]], dtype=np.int64)
+    rings = ring_of(meta[:, M_LANES])
     if force is not None:
         if force not in VARIANTS:
             raise ValueError(f"unknown forward variant {force!r}")
@@ -187,21 +195,24 @@ def gap_params(q, e, q2, e2, splice):
     return q, e, q2, e2, long_thres, long_thres * (e - e2) - (q2 - q) - e2
 
 
-def n_col_of(qlen: int, tlen: int, w: int, splice: bool) -> int:
+def n_col_of(qlen, tlen, w, splice: bool):
     """Row stride of the reference's flat backtrack bytes: extd2
     ksw2_extd2_sse.c:98-100 (as ksw2_pallas.py:989), exts2 :96 (as :1098).
-    Every aligned band fits in one row, so rows never overlap."""
+    Every aligned band fits in one row, so rows never overlap. Takes
+    numbers or arrays of them."""
     if splice:
-        return (min(qlen, tlen) + 15) // 16 * 16 + 16
-    return ((min(qlen, tlen, w + 1) + 15) // 16 + 1) * 16
+        return (np.minimum(qlen, tlen) + 15) // 16 * 16 + 16
+    return ((np.minimum(np.minimum(qlen, tlen), w + 1) + 15) // 16 + 1) * 16
 
 
 def donor_acceptor(target: np.ndarray, noncan: int, flag: int):
     """Donor and acceptor splice-signal arrays (reference
     ksw2_exts2_sse.c:112-131): the same int8 arrays of length tlen16 as
     ops/ksw2_splice.make_donor_acceptor, computed with whole-array numpy
-    compares instead of its per-base Python loops, which made it the
-    largest host cost of a splice wave."""
+    compares instead of its per-base Python loops. One target at a time:
+    the model that ksw2_ext.splice_signal (the card's kernel and its
+    plain version, which compute every job of a wave at once) is held
+    to."""
     tlen = len(target)
     tlen16 = (tlen + 15) // 16 * 16
     donor = np.zeros(tlen16, dtype=np.int8)
@@ -235,25 +246,46 @@ def donor_acceptor(target: np.ndarray, noncan: int, flag: int):
     return donor, acceptor
 
 
+def _job_fields(jobs, splice: bool):
+    """The fields of a wave's jobs that the pack reads, one int64 array
+    each: (qlen, tlen, flag, w), w the band the kernels run (the longer
+    side under splice or where the job's w < 0)."""
+    R = len(jobs)
+    qlen = np.fromiter((len(j["qseq"]) for j in jobs), np.int64, R)
+    tlen = np.fromiter((len(j["tseq"]) for j in jobs), np.int64, R)
+    flag = np.fromiter((j["flag"] for j in jobs), np.int64, R)
+    w = np.maximum(qlen, tlen)
+    if not splice:
+        w_job = np.fromiter((j["w"] for j in jobs), np.int64, R)
+        w = np.where(w_job < 0, w, w_job)
+    return qlen, tlen, flag, w
+
+
+def _p_sizes(qlen, tlen, flag, w, splice: bool):
+    """(n_col, backtrack bytes) of each job: no bytes for score-only."""
+    ncol = n_col_of(qlen, tlen, w, splice)
+    return ncol, np.where(flag & K.KSW_EZ_SCORE_ONLY, 0,
+                          (qlen + tlen - 1) * ncol)
+
+
 def pack_jobs(jobs, *, splice: bool, noncan: int = 0):
     """Per-job kernel inputs, ragged: returns a dict of numpy arrays
     - tseq uint8 (T,): each job's target at meta[M_TOFF], zero-padded to
       tlen16 + T_PAD (the offsets also place the job's DP state rows);
     - qrev uint8 (Q,): each job's query reversed at meta[M_QOFF],
       zero-padded by Q_PAD;
-    - dac int16 (T,): splice donor (low byte) and acceptor (high byte)
-      signals (`donor_acceptor`), packed as ksw2_pallas.py:1053-1055
-      (zero for extd2);
     - meta int32 (R, META_COLS): the M_* columns of ksw2_pallas.py:937-953
-      and :1046-1065 plus the port's stride and offsets;
+      and :1046-1065 plus the port's stride, offsets and splice flags;
     - poff int64 (R,): each job's first byte in the flat backtrack buffer;
     - order int32: `launch_plan`'s job order, with its `groups`;
     plus p_bytes, ops_total (walk step-code capacity), t_total, band_max
-    (widest aligned band plus the score block tail, in lanes) and rows_max.
-    Jobs need qlen >= 1 and tlen >= 1."""
+    (widest aligned band plus the score block tail, in lanes), rows_max
+    and noncan (the wave's, 0 for extd2). The splice signal is not packed:
+    ksw2_ext.splice_signal computes it on the device from tseq and meta.
+    Every array is filled for the whole wave at once; jobs need qlen >= 1
+    and tlen >= 1."""
     R = len(jobs)
-    qlen = np.array([len(j["qseq"]) for j in jobs], dtype=np.int64)
-    tlen = np.array([len(j["tseq"]) for j in jobs], dtype=np.int64)
+    qlen, tlen, flag, w = _job_fields(jobs, splice)
     if R and (qlen.min() < 1 or tlen.min() < 1):
         raise ValueError("pack_jobs needs non-empty query and target")
     tsz = (tlen + 15) // 16 * 16 + T_PAD
@@ -262,69 +294,53 @@ def pack_jobs(jobs, *, splice: bool, noncan: int = 0):
     qoff = np.cumsum(qsz) - qsz
     nrows = qlen + tlen - 1
     opoff = np.cumsum(nrows + 1) - (nrows + 1)
+    # each sequence and its zero pad, back to back, in one copy
+    zeros = np.zeros(T_PAD + 15, dtype=np.uint8)
+    tseq = np.concatenate([x for j, pad in zip(jobs, (tsz - tlen).tolist())
+                           for x in (j["tseq"], zeros[:pad])]
+                          or [zeros[:0]]).astype(np.uint8, copy=False)
+    qrev = np.concatenate([x for j in jobs
+                           for x in (j["qseq"][::-1], zeros[:Q_PAD])]
+                          or [zeros[:0]]).astype(np.uint8, copy=False)
+    ncol, p_sz = _p_sizes(qlen, tlen, flag, w, splice)
+    sconly = (flag & K.KSW_EZ_SCORE_ONLY) != 0
     meta = np.zeros((R, META_COLS), dtype=np.int32)
-    tseq = np.zeros(int(tsz.sum()), dtype=np.uint8)
-    qrev = np.zeros(int(qsz.sum()), dtype=np.uint8)
-    dac = np.zeros(int(tsz.sum()), dtype=np.int16)
-    poff = np.zeros(R, dtype=np.int64)
-    p_bytes = band_max = 0
-    for j, job in enumerate(jobs):
-        qs, ts = job["qseq"], job["tseq"]
-        ql, tl = len(qs), len(ts)
-        to, qo = int(toff[j]), int(qoff[j])
-        tseq[to:to + tl] = ts
-        qrev[qo:qo + ql] = qs[::-1]
-        flag = job["flag"]
-        w = max(ql, tl) if splice or job["w"] < 0 else job["w"]
-        if splice:
-            donor, acceptor = donor_acceptor(ts, noncan, flag)
-            dac[to:to + len(donor)] = ((donor.astype(np.int16) & 0xFF)
-                                       | ((acceptor.astype(np.int16) & 0xFF)
-                                          << 8))
-        ncol = n_col_of(ql, tl, w, splice)
-        band_max = max(band_max, ncol + 16)
-        sconly = bool(flag & K.KSW_EZ_SCORE_ONLY)
-        meta[j, M_QLEN] = ql
-        meta[j, M_TLEN] = tl
-        meta[j, M_W] = w
-        meta[j, M_ZDROP] = job["zdrop"]
-        meta[j, M_RIGHT] = 1 if flag & K.KSW_EZ_RIGHT else 0
-        meta[j, M_APPROX] = 1 if flag & K.KSW_EZ_APPROX_MAX else 0
-        meta[j, M_ADROP] = 1 if flag & K.KSW_EZ_APPROX_DROP else 0
-        meta[j, M_EXTZ] = 1 if flag & K.KSW_EZ_EXTZ_ONLY else 0
-        meta[j, M_SCONLY] = 1 if sconly else 0
-        meta[j, M_ENDB] = 0 if splice else job["end_bonus"]
-        meta[j, M_NCOL] = 0 if sconly else ncol
-        meta[j, M_TOFF] = to
-        meta[j, M_QOFF] = qo
-        meta[j, M_OPOFF] = int(opoff[j])
-        meta[j, M_LANES] = ncol + 16
-        poff[j] = p_bytes
-        if not sconly:
-            p_bytes += (ql + tl - 1) * ncol
+    meta[:, M_QLEN] = qlen
+    meta[:, M_TLEN] = tlen
+    meta[:, M_W] = w
+    meta[:, M_ZDROP] = np.fromiter((j["zdrop"] for j in jobs), np.int64, R)
+    for c, bit in ((M_RIGHT, K.KSW_EZ_RIGHT), (M_APPROX, K.KSW_EZ_APPROX_MAX),
+                   (M_ADROP, K.KSW_EZ_APPROX_DROP),
+                   (M_EXTZ, K.KSW_EZ_EXTZ_ONLY),
+                   (M_SCONLY, K.KSW_EZ_SCORE_ONLY)):
+        meta[:, c] = (flag & bit) != 0
+    if not splice:
+        meta[:, M_ENDB] = np.fromiter((j["end_bonus"] for j in jobs),
+                                      np.int64, R)
+    meta[:, M_NCOL] = np.where(sconly, 0, ncol)
+    meta[:, M_TOFF] = toff
+    meta[:, M_QOFF] = qoff
+    meta[:, M_OPOFF] = opoff
+    meta[:, M_LANES] = ncol + 16
+    if splice:
+        meta[:, M_SPLICE] = flag & SPLICE_BITS
+    poff = np.cumsum(p_sz) - p_sz
     order, groups = launch_plan(meta)
-    return dict(tseq=tseq, qrev=qrev, dac=dac, meta=meta, poff=poff,
-                order=order, groups=groups, p_bytes=p_bytes,
+    return dict(tseq=tseq, qrev=qrev, meta=meta, poff=poff,
+                order=order, groups=groups, p_bytes=int(p_sz.sum()),
                 ops_total=int((nrows + 1).sum()),
-                t_total=int(tsz.sum()), band_max=band_max,
-                rows_max=int(nrows.max()) if R else 0)
-
-
-def p_bytes_of(job, splice: bool) -> int:
-    """Backtrack bytes one job needs (0 for score-only jobs)."""
-    if job["flag"] & K.KSW_EZ_SCORE_ONLY:
-        return 0
-    ql, tl = len(job["qseq"]), len(job["tseq"])
-    w = max(ql, tl) if splice or job["w"] < 0 else job["w"]
-    return (ql + tl - 1) * n_col_of(ql, tl, w, splice)
+                t_total=int(tsz.sum()),
+                band_max=int(ncol.max()) + 16 if R else 0,
+                rows_max=int(nrows.max()) if R else 0,
+                noncan=noncan if splice else 0)
 
 
 def split_by_budget(jobs, splice: bool, budget: int) -> list[list[int]]:
     """Cut a wave into launches whose backtrack bytes stay within `budget`
     (a job larger than the budget gets a launch of its own)."""
+    sizes = _p_sizes(*_job_fields(jobs, splice), splice)[1]
     groups, cur, used = [], [], 0
-    for i, job in enumerate(jobs):
-        b = p_bytes_of(job, splice)
+    for i, b in enumerate(sizes.tolist()):
         if cur and used + b > budget:
             groups.append(cur)
             cur, used = [], 0

@@ -70,7 +70,7 @@ def by_ring(KPK, meta, threads_of):
     shared memory need the device-memory kernel: none in these waves)."""
     rows = meta[:, KPK.M_QLEN].astype(np.int64) + meta[:, KPK.M_TLEN] - 1
     by_len = np.argsort(-rows, kind="stable").astype(np.int32)
-    rings = np.array([KPK.ring_of(x) for x in meta[:, KPK.M_LANES]])
+    rings = KPK.ring_of(meta[:, KPK.M_LANES])
     order, groups = [], []
     for ring in sorted(set(rings), reverse=True):
         idx = by_len[rings[by_len] == ring]
@@ -88,7 +88,7 @@ def sweep(name, jobs, scoring, splice):
     from ..ops import ksw2_ext as KE
     from ..ops import ksw2_pack as KPK
     pk, ts, kw = S.ksw_inputs(jobs, scoring, splice, "cuda")
-    args = [ts[k] for k in KE.TENSOR_KEYS]
+    args = [ts[k] for k in KE.FORWARD_KEYS]
     meta = pk["meta"]
     rows = meta[:, KPK.M_QLEN] + meta[:, KPK.M_TLEN] - 1
     print(f"== {name}: {len(jobs)} jobs, rows max {rows.max()} mean "

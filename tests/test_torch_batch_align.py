@@ -84,8 +84,13 @@ def test_executor_matches_host_executor(case, request):
 
 def test_failed_launch_raises(splice_case, monkeypatch):
     """A non-zero return from the C entry point raises RuntimeError out of
-    the executor: no fallback hides the card."""
+    the executor: no fallback hides the card. (The splice signal's entry,
+    launched first, returns 0 here.)"""
     class FailingLib:
+        @staticmethod
+        def mm2tpu_ksw_splice_signal(*args):
+            return 0
+
         @staticmethod
         def mm2tpu_ksw_forward(*args):
             return 700   # cudaErrorIllegalAddress
@@ -95,10 +100,11 @@ def test_failed_launch_raises(splice_case, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda dev: _Null())
     monkeypatch.setattr(_build, "load", lambda: FailingLib)
     mi, mo, frags = splice_case
-    before = KE.ksw_forward.launches
+    before = KE.ksw_forward.launches, KE.splice_signal.launches
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         drive(mi, mo, frags, CudaAlignExecutor(mo, device="cpu"))
-    assert KE.ksw_forward.launches == before
+    assert KE.ksw_forward.launches == before[0]
+    assert KE.splice_signal.launches == before[1] + 1
 
 
 class _Null:

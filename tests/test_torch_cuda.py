@@ -4,9 +4,12 @@ ksw2 forward kernel (as the wrapper plans its launches and in every
 variant that holds the jobs, forced) and the walk kernel against theirs on
 chip_smoke.ksw_cases() and on jobs at the variants' boundaries (bit-exact
 ez rows, step codes, fin), the shared-memory limit against the native host
-library, and TorchRuntime on cuda against the port's HostRuntime
-(byte-identical lines) under map-ont and -x splice, and under the stealing
-routing from map_stream's two batch threads; the device index build,
+library, the splice-signal kernel against its plain version
+(donor_acceptor job by job), exts2 waves on phase 3's N corpus against
+the plain versions and the native host library, and TorchRuntime on cuda
+against the port's HostRuntime (byte-identical lines) under map-ont and
+-x splice, and under the stealing routing from map_stream's two batch
+threads; the device index build,
 entry(), a 1 x 1 nccl mesh, and meshes of two ranks on one card over gloo
 (1 x 2, 2 x 1); the regimes of the presets: the chain launches of
 -x ava-pb (bw 2000) and extension jobs of several kb under the asm10 and
@@ -271,6 +274,53 @@ def test_ksw_shared_memory_limit_on_card(cuda):
     assert [key(g) for g in got] == [key(g) for g in want]
 
 
+@pytest.mark.parametrize("wave", range(4))
+def test_splice_signal_kernel_on_card(cuda, wave):
+    """The splice-signal kernel's buffer against its plain version
+    (donor_acceptor job by job on the CPU, from the same packed arrays),
+    byte for byte: chip_smoke's mixed waves (every splice flag set,
+    targets of 1 to 40 bases, at 16k +- 1, GT/AG-rich ones of 3000) and a
+    cDNA-sized wave of 2400 jobs with targets up to 16384."""
+    import chip_smoke as S
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
+    name, jobs, noncan = [*S.splice_signal_waves(),
+                          S.splice_signal_cdna_wave()][wave]
+    pk = KPK.pack_jobs(jobs, splice=True, noncan=noncan)
+    before = KE.splice_signal.launches
+    ts = KE.device_inputs(pk, cuda, splice=True)
+    assert KE.splice_signal.launches == before + 1
+    got = ts["dac"].cpu()
+    plain = KE.splice_signal_ref(ts["tseq"].cpu(), ts["meta"].cpu(),
+                                 t_total=pk["t_total"], noncan=noncan)
+    assert got.dtype == torch.int16 and torch.equal(got, plain), name
+
+
+def test_exts2_batch_on_card_n_corpus(cuda):
+    """exts2_batch on the card, its splice signal from the kernel, against
+    the plain versions (the signal computed on the CPU) and the native host
+    library (the reference's SIMD build) on phase 3's N corpus: every Ez
+    field and CIGAR equal."""
+    from chip_smoke import ambiguous_ksw_cases
+    from minimap2_chaindp_tpu_torch import native
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    key = lambda g: (g.score, g.max, g.zdropped, g.max_q, g.max_t, g.mqe,
+                     g.mqe_t, g.mte, g.mte_q, g.reach_end, list(g.cigar))
+    cases = [c for c in ambiguous_ksw_cases() if c[3]]
+    assert cases
+    for name, jobs, (q, e, q2, noncan, a, b), _splice in cases:
+        mat = K.gen_simple_mat(5, a, b)
+        before = KE.splice_signal.launches
+        got = KE.exts2_batch(jobs, mat, q, e, q2, noncan, device=cuda)
+        assert KE.splice_signal.launches == before + 1, name
+        plain = KE.exts2_batch(jobs, mat, q, e, q2, noncan, device="cpu")
+        assert [key(g) for g in got] == [key(g) for g in plain], name
+        want = native.exts2_batch_native(jobs, mat, q, e, q2, noncan)
+        if want is not None:
+            assert [key(g) for g in got] == [key(g) for g in want], name
+
+
 def test_splice_runtime_on_card_matches_host(cuda):
     from minimap2_chaindp_tpu_torch import constants as C
     from minimap2_chaindp_tpu_torch.index.build import build_index
@@ -289,11 +339,13 @@ def test_splice_runtime_on_card_matches_host(cuda):
     frags = [f for b in read_frags([os.path.join(data, "splice_cdna.fa")],
                                    mo.mini_batch_size, False) for f in b]
     want = HostRuntime(mi, mo).map_batch(frags)
-    before = (KE.ksw_forward.launches, KE.ksw_walk.launches)
+    before = (KE.ksw_forward.launches, KE.ksw_walk.launches,
+              KE.splice_signal.launches)
     rt = TorchRuntime(mi, mo, device=cuda)
     assert rt.map_batch(frags) == want
     assert KE.ksw_forward.launches > before[0]
     assert KE.ksw_walk.launches > before[1]
+    assert KE.splice_signal.launches > before[2]
     assert rt.align_exec.n_device > 0
 
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as S
 import test_ksw2_pallas as TP
 import test_ksw2_splice_pallas as TS
 from minimap2_chaindp_tpu.ops import ksw2 as K
@@ -133,8 +134,9 @@ def test_p_budget_splits_launches(monkeypatch):
     result; score-only jobs need no backtrack bytes."""
     jobs = TP.gen_jobs(0, 6)
     jobs[0] = dict(jobs[0], flag=K.KSW_EZ_SCORE_ONLY)
-    assert KPK.p_bytes_of(jobs[0], False) == 0
-    total = sum(KPK.p_bytes_of(j, False) for j in jobs)
+    sizes = KPK._p_sizes(*KPK._job_fields(jobs, False), False)[1]
+    assert sizes[0] == 0
+    total = int(sizes.sum())
     assert KPK.split_by_budget(jobs, False, total) == [list(range(6))]
     assert KPK.split_by_budget(jobs, False, 1) == [[i] for i in range(6)]
     mat = K.gen_simple_mat(5, 2, 4)
@@ -181,6 +183,192 @@ def test_donor_acceptor_matches_shared(flag):
             want = make_donor_acceptor(t, noncan, flag)
             assert all(np.array_equal(g, w) and g.dtype == w.dtype
                        for g, w in zip(got, want)), (len(t), noncan)
+
+
+@pytest.mark.parametrize("wave", range(3), ids=["noncan0", "noncan9",
+                                                  "noncan15"])
+def test_splice_signal_matches_donor_acceptor(wave):
+    """The plain splice signal of a whole wave equals donor_acceptor job
+    by job, at every position of every job's slot, on chip_smoke's mixed
+    waves (every splice flag set on targets of 1 to 40 bases, at 16k - 1,
+    16k and 16k + 1, and GT/AG-rich ones of 3000 bases); junk in the
+    slack between the jobs' targets changes nothing, so no job reads its
+    neighbour's bases."""
+    name, jobs, noncan = S.splice_signal_waves()[wave]
+    pk = KPK.pack_jobs(jobs, splice=True, noncan=noncan)
+    assert pk["noncan"] == noncan
+    want = _pack_model(jobs, splice=True, noncan=noncan)["dac"]
+    ts = KE.device_inputs(pk, "cpu", splice=True)
+    got = ts["dac"]
+    assert got.dtype == torch.int16 and np.array_equal(got.numpy(), want)
+    for j, job in enumerate(jobs):
+        to, tl = int(pk["meta"][j, KPK.M_TOFF]), len(job["tseq"])
+        donor, acceptor = KPK.donor_acceptor(job["tseq"], noncan, job["flag"])
+        sig = got.numpy()[to:to + len(donor)]
+        assert np.array_equal(sig.view(np.uint16) & 0xFF,
+                              donor.view(np.uint8)), (name, j, tl)
+        assert np.array_equal(sig.view(np.uint16) >> 8,
+                              acceptor.view(np.uint8)), (name, j, tl)
+    # the bytes between the targets (each job's tlen16 - tlen and T_PAD)
+    # made to read as splice sites
+    junk = pk["tseq"].copy()
+    inside = np.zeros(len(junk), bool)
+    for j, job in enumerate(jobs):
+        to = int(pk["meta"][j, KPK.M_TOFF])
+        inside[to:to + len(job["tseq"])] = True
+    junk[~inside] = np.resize(np.array([2, 3, 0, 2], np.uint8),
+                              int((~inside).sum()))
+    again = KE.splice_signal(torch.from_numpy(junk), ts["meta"],
+                             t_total=pk["t_total"], noncan=noncan)
+    assert torch.equal(again, got)
+
+
+def _ncol_model(qlen, tlen, w, splice):
+    if splice:
+        return (min(qlen, tlen) + 15) // 16 * 16 + 16
+    return ((min(qlen, tlen, w + 1) + 15) // 16 + 1) * 16
+
+
+def _plan_model(meta):
+    """ksw2_pack.launch_plan as it was, unforced: a ring a job."""
+    rows = meta[:, KPK.M_QLEN].astype(np.int64) + meta[:, KPK.M_TLEN] - 1
+    by_len = np.argsort(-rows, kind="stable").astype(np.int32)
+    rings = np.array([KPK._pow2_at_least(int(x), KPK.RING_MIN)
+                      for x in meta[:, KPK.M_LANES]], dtype=np.int64)
+    on_chip = rings <= KPK.SMEM_RING_MAX
+    order, groups = [], []
+    for variant, mask in (("global", ~on_chip), ("block", on_chip)):
+        idx = by_len[mask[by_len]]
+        if not len(idx):
+            continue
+        ring = int(rings[idx].max())
+        threads = KPK.block_threads(ring) if variant == "block" else min(
+            KPK.MAX_THREADS,
+            KPK._pow2_at_least(int(meta[idx, KPK.M_LANES].max()), 64))
+        groups.append(dict(variant=variant, ring=ring, threads=threads,
+                           start=sum(map(len, order)), count=len(idx)))
+        order.append(idx)
+    order.append(by_len)
+    return np.concatenate(order).astype(np.int32), groups
+
+
+def _pack_model(jobs, *, splice, noncan=0):
+    """ksw2_pack.pack_jobs as it was, a loop over the jobs, the splice
+    signal `dac` packed on the host: the model of the whole-wave pack."""
+    R = len(jobs)
+    qlen = np.array([len(j["qseq"]) for j in jobs], dtype=np.int64)
+    tlen = np.array([len(j["tseq"]) for j in jobs], dtype=np.int64)
+    tsz = (tlen + 15) // 16 * 16 + KPK.T_PAD
+    toff = np.cumsum(tsz) - tsz
+    qsz = qlen + KPK.Q_PAD
+    qoff = np.cumsum(qsz) - qsz
+    nrows = qlen + tlen - 1
+    opoff = np.cumsum(nrows + 1) - (nrows + 1)
+    meta = np.zeros((R, KPK.META_COLS), dtype=np.int32)
+    tseq = np.zeros(int(tsz.sum()), dtype=np.uint8)
+    qrev = np.zeros(int(qsz.sum()), dtype=np.uint8)
+    dac = np.zeros(int(tsz.sum()), dtype=np.int16)
+    poff = np.zeros(R, dtype=np.int64)
+    p_bytes = band_max = 0
+    for j, job in enumerate(jobs):
+        qs, ts = job["qseq"], job["tseq"]
+        ql, tl = len(qs), len(ts)
+        to, qo = int(toff[j]), int(qoff[j])
+        tseq[to:to + tl] = ts
+        qrev[qo:qo + ql] = qs[::-1]
+        flag = job["flag"]
+        w = max(ql, tl) if splice or job["w"] < 0 else job["w"]
+        if splice:
+            donor, acceptor = KPK.donor_acceptor(ts, noncan, flag)
+            dac[to:to + len(donor)] = ((donor.astype(np.int16) & 0xFF)
+                                       | ((acceptor.astype(np.int16) & 0xFF)
+                                          << 8))
+        ncol = _ncol_model(ql, tl, w, splice)
+        band_max = max(band_max, ncol + 16)
+        sconly = bool(flag & K.KSW_EZ_SCORE_ONLY)
+        meta[j, KPK.M_QLEN] = ql
+        meta[j, KPK.M_TLEN] = tl
+        meta[j, KPK.M_W] = w
+        meta[j, KPK.M_ZDROP] = job["zdrop"]
+        meta[j, KPK.M_RIGHT] = 1 if flag & K.KSW_EZ_RIGHT else 0
+        meta[j, KPK.M_APPROX] = 1 if flag & K.KSW_EZ_APPROX_MAX else 0
+        meta[j, KPK.M_ADROP] = 1 if flag & K.KSW_EZ_APPROX_DROP else 0
+        meta[j, KPK.M_EXTZ] = 1 if flag & K.KSW_EZ_EXTZ_ONLY else 0
+        meta[j, KPK.M_SCONLY] = 1 if sconly else 0
+        meta[j, KPK.M_ENDB] = 0 if splice else job["end_bonus"]
+        meta[j, KPK.M_NCOL] = 0 if sconly else ncol
+        meta[j, KPK.M_TOFF] = to
+        meta[j, KPK.M_QOFF] = qo
+        meta[j, KPK.M_OPOFF] = int(opoff[j])
+        meta[j, KPK.M_LANES] = ncol + 16
+        poff[j] = p_bytes
+        if not sconly:
+            p_bytes += (ql + tl - 1) * ncol
+    order, groups = _plan_model(meta)
+    return dict(tseq=tseq, qrev=qrev, dac=dac, meta=meta, poff=poff,
+                order=order, groups=groups, p_bytes=p_bytes,
+                ops_total=int((nrows + 1).sum()),
+                t_total=int(tsz.sum()), band_max=band_max,
+                rows_max=int(nrows.max()) if R else 0)
+
+
+def pack_waves():
+    """(name, jobs, splice, noncan): mixed extd2 and exts2 waves with
+    score-only, extz-only, w < 0, approximate-maximum and RIGHT jobs,
+    code 4 among the bases; and an empty wave."""
+    rng = np.random.default_rng(29)
+    odd = (K.KSW_EZ_SCORE_ONLY, K.KSW_EZ_EXTZ_ONLY, K.KSW_EZ_APPROX_MAX,
+           K.KSW_EZ_APPROX_MAX | K.KSW_EZ_APPROX_DROP, K.KSW_EZ_RIGHT,
+           K.KSW_EZ_EXTZ_ONLY | K.KSW_EZ_RIGHT | K.KSW_EZ_REV_CIGAR, 0)
+    extd2 = mixed_wave() + TP.gen_jobs(8, 12, tlen_rng=(1, 40))
+    for i, job in enumerate(extd2):
+        job["flag"] |= odd[i % len(odd)]
+        job["w"] = -1 if i % 4 == 0 else job["w"]
+        job["end_bonus"] = int(rng.integers(-1, 20))
+    extd2[5]["tseq"] = np.where(rng.random(len(extd2[5]["tseq"])) < 0.1, 4,
+                                extd2[5]["tseq"]).astype(np.uint8)
+    exts2 = TS.gen_jobs(1, 6) + splice_mixed()
+    fl = (K.KSW_EZ_SPLICE_REV, K.KSW_EZ_SPLICE_FOR | K.KSW_EZ_SPLICE_FLANK,
+          K.KSW_EZ_SPLICE_FOR | K.KSW_EZ_SPLICE_REV)
+    for i, job in enumerate(exts2):
+        job["flag"] |= odd[i % len(odd)] | fl[i % len(fl)]
+    return [("extd2", extd2, False, 0), ("exts2", exts2, True, 9),
+            ("exts2 noncan 15", exts2, True, 15),
+            ("signal wave", S.splice_signal_waves(3)[1][1], True, 9),
+            ("empty extd2", [], False, 0), ("empty exts2", [], True, 9)]
+
+
+@pytest.mark.parametrize("wave", range(6))
+def test_pack_jobs_matches_per_job_model(wave):
+    """The whole-wave pack equals the per-job one it replaced on every key
+    and dtype; its meta's M_SPLICE column holds each job's splice flags
+    (0 in extd2 waves), and the splice signal that the per-job pack made
+    on the host comes from tseq and meta (`device_inputs`) bit for bit."""
+    name, jobs, splice, noncan = pack_waves()[wave]
+    got = KPK.pack_jobs(jobs, splice=splice, noncan=noncan)
+    want = _pack_model(jobs, splice=splice, noncan=noncan)
+    assert set(got) == set(want) - {"dac"} | {"noncan"}
+    assert got["noncan"] == (noncan if splice else 0)
+    for k, v in want.items():
+        if k == "dac":
+            continue
+        g = got[k]
+        if isinstance(v, np.ndarray):
+            assert g.dtype == v.dtype and g.shape == v.shape, (name, k)
+            if k == "meta":
+                g, v = g[:, :KPK.M_SPLICE], v[:, :KPK.M_SPLICE]
+            assert np.array_equal(g, v), (name, k)
+        else:
+            assert g == v and type(g) is type(v), (name, k)
+    flags = np.array([j["flag"] for j in jobs], dtype=np.int64)
+    assert got["meta"][:, KPK.M_SPLICE].tolist() == (
+        (flags & KPK.SPLICE_BITS) if splice else 0 * flags).tolist()
+    ts = KE.device_inputs(got, "cpu", splice=splice)
+    assert set(ts) == set(KE.FORWARD_KEYS)
+    if splice:
+        assert np.array_equal(ts["dac"].numpy(), want["dac"]), name
+    else:
+        assert ts["dac"] is None and not want["dac"].any()
 
 
 # ------------------------------------------------- launch plan (off the card)
@@ -307,11 +495,11 @@ def _raw(pk, gaps, mat, splice, groups, order):
     """Plain forward and walk over `pk` under the given launch groups:
     (p, ez with fin, ops)."""
     q, e, q2, e2, lt, ld = gaps
-    ts = {k: torch.from_numpy(pk[k]) for k in KE.TENSOR_KEYS}
+    ts = KE.device_inputs(pk, "cpu", splice=splice)
     ts["order"] = torch.from_numpy(order)
     scoring = (q, e, q2, e2, int(mat[0]), int(mat[1]),
                -e if splice else -e2, lt, ld)
-    p, ez = KE.ksw_forward(*(ts[k] for k in KE.TENSOR_KEYS), groups=groups,
+    p, ez = KE.ksw_forward(*(ts[k] for k in KE.FORWARD_KEYS), groups=groups,
                            scoring=scoring, splice=splice,
                            p_bytes=pk["p_bytes"], t_total=pk["t_total"],
                            band_max=pk["band_max"], rows_max=pk["rows_max"])

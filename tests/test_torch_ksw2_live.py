@@ -108,7 +108,7 @@ def plain_on(jobs, scoring, splice, device):
     """The plain forward and walk over one launch of `jobs` on `device`:
     (pk, p, ez with fin, ops)."""
     pk, ts, kw = S.ksw_inputs(jobs, scoring, splice, device)
-    args = [ts[k] for k in KE.TENSOR_KEYS[:5]]
+    args = [ts[k] for k in KE.FORWARD_KEYS[:5]]
     p, ez = KE.ksw_forward_ref(*args, **{k: v for k, v in kw.items()
                                          if k != "groups"})
     ops = KE.ksw_walk_ref(p, ts["poff"], ts["meta"], ez, splice=splice,

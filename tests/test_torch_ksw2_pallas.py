@@ -26,10 +26,10 @@ def _port_raw(jobs, mat, gaps, splice, noncan=0):
     """The port's plain forward and walk on CPU tensors: (ez, ops, meta)."""
     pk = KPK.pack_jobs(jobs, splice=splice, noncan=noncan)
     q, e, q2, e2, lt, ld = gaps
-    ts = {k: torch.from_numpy(pk[k]) for k in KE.TENSOR_KEYS}
+    ts = KE.device_inputs(pk, "cpu", splice=splice)
     scoring = (q, e, q2, e2, int(mat[0]), int(mat[1]),
                -e if splice else -e2, lt, ld)
-    p, ez = KE.ksw_forward(*(ts[k] for k in KE.TENSOR_KEYS),
+    p, ez = KE.ksw_forward(*(ts[k] for k in KE.FORWARD_KEYS),
                            groups=pk["groups"], scoring=scoring,
                            splice=splice, p_bytes=pk["p_bytes"],
                            t_total=pk["t_total"], band_max=pk["band_max"],

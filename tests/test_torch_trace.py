@@ -145,7 +145,8 @@ def test_tracing_off_sums_as_plain_timers(runs, kind):
     assert off["n"] == plain["n"] and set(off["acc"]) == set(plain["acc"])
     assert _masked(off["line"]) == _masked(plain["line"])
     # no launch work counter without a trace
-    assert not any(k.startswith(("chain_pairs", "ksw_cells", "walk_"))
+    assert not any(k.startswith(("chain_pairs", "ksw_cells", "walk_",
+                                 "ksw_signal"))
                    for k in off["counters"])
 
 
@@ -307,7 +308,13 @@ def test_launch_counters_equal_a_direct_count(runs, kind):
                 else sum(x >> 4 for x in ez.cigar))
             add("ksw_in_bytes", len(job["qseq"])
                 + len(job["tseq"]) * (2 if splice else 1))
+            # the uploaded arrays: target and reversed query with their
+            # pads, a meta row, poff and twice the order (no splice
+            # signal: the card computes it)
+            add("ksw_h2d_bytes", (len(job["tseq"]) + 15) // 16 * 16 + 32
+                + len(job["qseq"]) + 16 + 16 * 4 + 8 + 2 * 4)
         add(f"ksw_jobs_{kind2}", len(jobs))
+        add("ksw_signal_jobs", len(jobs) if splice else 0)
     assert launches["chain"]
     assert {k: c.get(k, 0) for k in want} == want
     assert c["chain_h2d_bytes"] > 0 and c["chain_d2h_bytes"] > 0
