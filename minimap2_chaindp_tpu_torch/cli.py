@@ -37,15 +37,24 @@ set the chain and extension crossovers (default 0: everything to the
 card) and device seed collection. The routing is printed on the
 `[timers]` line, then each span's wall time and count (`name=ms/n`) and
 each counter (`name=n`). The spans (utils/trace.py) nest: `map_batch`
-holds a batch's `seed` (`sketch`, `seed_hits`), `kernel` (`chain_upload`,
+holds a batch's `seed` (`sketch`, `seed_hits`), `flow` (the fused flow:
+`flow_prep`, its host seed stats and bucket fill, then its own `kernel`,
+`bottom` and `seed` > `flow_seed_hits`), `kernel` (`chain_upload`,
 `chain_launch`, `device_wait`), `pack`, `bottom`, `host_chain`, `align`
 (`native_finish`, the flow's reads' native finish; `staged_align`, whose
 rounds are `skeleton` spans beside the executor's `ext_wave` with
 `ext_pack`, `ext_upload`, `ext_launch`, `device_wait`, `ext_decode`, and
 `ext_native`, `ext_host`) and `epilogue`; `feed_wait` is the wait for
 the next input batch; the stealing lane's chunks are `steal_prep`,
-`steal_flow`, `steal_finish`. `native_finish`, `ext_native` and
-`ext_host` name both a span and a counter of reads or jobs.
+`steal_flow` (around the lane's `flow`), `steal_finish`. `native_finish`,
+`ext_native` and `ext_host` name both a span and a counter of reads or
+jobs. The flow's routing counters, summed per batch: `flow_units`
+(single-segment units with minimizers offered to it) = `flow_empty` (no
+anchor) + `flow_out_minimizers`, `flow_out_anchors`, `flow_out_shard`,
+`flow_out_qspan`, `flow_out_exc`, `flow_out_flag` (each reason a unit
+leaves it for the staged path) + `device_reads`; `native_finish_bases`
+and `native_finish_declined` are the query bases the native finish
+finished and the reads it declined.
 Follows minimap2_chaindp_tpu/cli.py:_main (:334-658) without the JAX
 compile cache, the link probe and deferred device init.
 """

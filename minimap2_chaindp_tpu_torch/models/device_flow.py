@@ -19,6 +19,8 @@ leave the read to the runtime's staged path. A CUDA error raises.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import numpy as np
 import torch
 
@@ -39,6 +41,13 @@ M_BUCKETS = (256, 1024, 2048, 4096)
 CAP_BUCKETS = (512, 1024, 2048, 4096, 8192)
 # the host arrays `place` uploads for a single-device bucket
 PLACED = ("qposidx", "qpos", "qspan8", "qls", "nn", "w1", "exc")
+# `run`'s routing counters, summed per batch: the single-segment units with
+# minimizers offered to the flow, those with no anchor, and each reason a
+# unit leaves for the staged path; flow_units = flow_empty + every
+# flow_out_* + device_reads
+FLOW_COUNTERS = ("flow_units", "flow_empty", "flow_out_minimizers",
+                 "flow_out_anchors", "flow_out_shard", "flow_out_qspan",
+                 "flow_out_exc", "flow_out_flag")
 
 
 def host_seed_stats(mi, mv: np.ndarray, max_occ: int):
@@ -226,9 +235,11 @@ class DeviceFlow:
                          cap=cap, max_dist_x=gr, max_dist_y=gq, bw=opt.bw,
                          max_skip=opt.max_chain_skip, use_exc=use_exc)
 
-    def buckets(self, units):
+    def buckets(self, units, counts: Counter | None = None):
         """The fused step's work for `units` (a list of (segs, UnitInfo)):
-        each read's eligibility and the fill of its bucket. Returns
+        each read's eligibility and the fill of its bucket; `counts`, when
+        given, gains the routing counters (FLOW_COUNTERS) of the units
+        offered, but `flow_out_flag`, which `run` counts. Returns
         (results, stats, buckets): `results` the Chains of the reads with
         no hit (their info.sh is filled here; no device work), `stats` the
         host seed stats by unit index, and `buckets`, sorted by
@@ -240,11 +251,14 @@ class DeviceFlow:
         results: dict[int, Chains] = {}
         stats: dict[int, tuple] = {}
         by_bucket: dict[tuple, list] = {}
+        tally = Counter() if counts is None else counts
         for k, (segs, info) in enumerate(units):
             if len(info.segs) != 1 or info.mv is None or len(info.mv) == 0:
                 continue
+            tally["flow_units"] += 1
             mb = next((m for m in M_BUCKETS if len(info.mv) <= m), None)
             if mb is None:
+                tally["flow_out_minimizers"] += 1
                 continue
             n, span_sum, over, pos, occ = host_seed_stats(mi, info.mv,
                                                           opt.mid_occ)
@@ -255,9 +269,11 @@ class DeviceFlow:
                                          np.empty((0, 2), np.uint64))
                 results[k] = Chains(np.empty((0, 2), np.uint64),
                                     np.empty(0, np.uint64))
+                tally["flow_empty"] += 1
                 continue
             cb = next((c for c in CAP_BUCKETS if n <= c), None)
             if cb is None:
+                tally["flow_out_anchors"] += 1
                 continue  # anchor overflow -> staged path
             if self.mesh is not None:
                 # capacity-bounded routing: every shard's compact hit
@@ -270,12 +286,15 @@ class DeviceFlow:
                 cb = next((c for c in CAP_BUCKETS
                            if n <= c and need <= c), None)
                 if cb is None:
+                    tally["flow_out_shard"] += 1
                     continue  # shard-skewed read -> staged path
             avg = np.float32(span_sum) / np.float32(n)
             if avg < 1.6:  # c_log shortcut domain (chain_pack)
+                tally["flow_out_qspan"] += 1
                 continue
             w1, excl = CP.clin_slope_exc(avg)
             if excl is None:
+                tally["flow_out_exc"] += 1
                 continue  # exception overflow -> staged path
             key = (mb, cb, info.gap_qry, info.gap_ref)
             by_bucket.setdefault(key, []).append((k, w1, excl))
@@ -331,10 +350,23 @@ class DeviceFlow:
         `units` is a list of (segs, UnitInfo); eligible units get info.sh
         filled (anchors from the device, host-computed rep_len / mini_pos)
         and an entry in the returned {unit_index: Chains} dict. Ineligible
-        or fallback units are left for the staged path."""
+        or fallback units are left for the staged path. Everything it does
+        is inside one `flow` span, the host seed stats and the bucket fill
+        inside `flow_prep`; the routing counters (FLOW_COUNTERS) are
+        counted once a name, where not 0."""
         timers = timers if timers is not None else Timers()
+        counts = Counter()
+        with timers.time("flow"):
+            results = self._run(units, timers, counts)
+        for name in FLOW_COUNTERS:
+            if counts[name]:
+                timers.count(name, counts[name])
+        return results
+
+    def _run(self, units, timers, counts: Counter) -> dict[int, Chains]:
         opt, mi = self.opt, self.mi
-        results, stats, buckets = self.buckets(units)
+        with timers.time("flow_prep"):
+            results, stats, buckets = self.buckets(units, counts)
         staged = []
         for entries, q, kw in buckets:
             with timers.time("kernel"):
@@ -394,6 +426,7 @@ class DeviceFlow:
                         # skip-divergence -> exact host recompute; the
                         # host-derived SeedHits stay usable
                         timers.count("fallback")
+                        counts["flow_out_flag"] += 1
                         if k in host_sh:
                             info.sh = host_sh[k]
                         continue
@@ -405,6 +438,7 @@ class DeviceFlow:
                         anchors = info.sh.anchors
                         if len(anchors) != n:  # err_flag pattern
                             timers.count("fallback")
+                            counts["flow_out_flag"] += 1
                             continue
                     ch = chain_bottom_native(anchors, f[r, :n], p[r, :n],
                                              opt.min_cnt,

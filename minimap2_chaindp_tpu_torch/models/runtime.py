@@ -403,10 +403,13 @@ class TorchRuntime:
         if flow_ok and any(len(u) == 1 for u, _ in units):
             flow_chains = self._get_flow().run(units, self.timers)
 
-        # native finish of flow-chained single-segment fragments
+        # native finish of flow-chained single-segment fragments; the
+        # query bases it finished and the reads it declined are counted
+        # once a batch
         lines: list = [None] * len(frags)
         done: set[int] = set()
         if flow_chains and unit_ok:
+            fin_bases = declined = 0
             with self.timers.time("align"), \
                     self.timers.time("native_finish"):
                 for fi, meta in enumerate(frag_meta):
@@ -423,10 +426,17 @@ class TorchRuntime:
                     got = map_unit_text_chains_native(
                         mi, opt, segs[0], rg_id, flow_chains[k],
                         info.sh.rep_len, info.sh.mini_pos)
-                    if got is not None:
-                        lines[fi] = got
-                        done.add(k)
-                        self.timers.count("native_finish")
+                    if got is None:
+                        declined += 1
+                        continue
+                    lines[fi] = got
+                    done.add(k)
+                    self.timers.count("native_finish")
+                    fin_bases += len(segs[0].seq)
+            if fin_bases:
+                self.timers.count("native_finish_bases", fin_bases)
+            if declined:
+                self.timers.count("native_finish_declined", declined)
 
         # the staged path for every other unit
         staged = [k for k in range(len(units)) if k not in done]

@@ -198,8 +198,17 @@ def test_span_tree(runs, kind):
             assert parent(s) == "staged_align"
         elif s.name in ("ext_pack", "ext_upload", "ext_launch", "ext_decode"):
             assert parent(s) == "ext_wave"
+        elif s.name == "flow_prep":
+            assert parent(s) == "flow"
+        elif s.name == "flow":
+            assert parent(s) == "map_batch"
     if kind == "map-ont":
-        assert "native_finish" in names
+        assert {"native_finish", "flow", "flow_prep"} <= names
+        # the flow's kernel and bottom half nest under its span, the
+        # staged path's beside it
+        for name in ("kernel", "bottom"):
+            assert any(parent(s) == "flow" for s in spans
+                       if s.name == name)
     else:
         assert {"staged_align", "skeleton", "ext_wave", "ext_pack",
                 "ext_upload", "ext_launch", "ext_decode"} <= names
