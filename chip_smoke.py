@@ -215,6 +215,11 @@ READS, READ_LEN = 1000, 10_000
 THREADS = 3
 GENES, TRANSCRIPTS, SPLICE_ERR = 1000, 2000, 0.05
 EXONS, EXON_LEN, INTRON_LEN = (4, 11), (80, 301), (100, 8001)  # [lo, hi)
+# every LONG_INTRON_EVERY-th gene has one intron of LONG_INTRON_LEN bp in
+# place of one drawn from INTRON_LEN, so that phases 5 and 12 give the ksw2
+# kernels spliced fills past 16384 target bases (the cdna cell's introns
+# reach 30 kb, its fills 155 kb)
+LONG_INTRON_EVERY, LONG_INTRON_LEN = 10, (16400, 40001)
 PAIRS, PAIR_LEN, FRAG_LEN = 5000, 150, (250, 500)
 # phase 7: phase 4's reads in batches of this many (so that the stream
 # has batches after the first and the stealing lane pulls); the share of
@@ -714,6 +719,72 @@ def splice_signal_cdna_wave(seed=0, n_jobs=2400):
     return f"cdna-sized signal wave, {n_jobs} jobs", jobs, 9
 
 
+# target lengths at and past the old limits of the shared-memory forward's
+# scan key (a lane index below 2^15) and of the executor (16384 bases a
+# side), up to the longest spliced fill the cdna cell gave (155 kb)
+LONG_TARGETS = (16385, 32767, 32768, 32769, 65536, 155_000)
+
+
+def _long_spliced_job(rng, tlen, flag, n_introns=1, junk=0, zdrop=200):
+    """A spliced job whose target has `tlen` bases: exons of 100-199
+    bases around `n_introns` introns of equal share of the rest, GT..AG
+    (CT..AC where `flag` has the reverse signal alone), the query those
+    exons at 5% error followed by `junk` unrelated bases (where z-drop
+    fires)."""
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    rev = flag & K.KSW_EZ_SPLICE_REV and not flag & K.KSW_EZ_SPLICE_FOR
+    exons = [rng.integers(0, 4, int(rng.integers(100, 200))).astype(np.uint8)
+             for _ in range(n_introns + 1)]
+    left = tlen - sum(map(len, exons))
+    cuts = [left * i // n_introns for i in range(n_introns + 1)]
+    genome = [exons[0]]
+    for i in range(n_introns):
+        intron = rng.integers(0, 4, cuts[i + 1] - cuts[i]).astype(np.uint8)
+        intron[:2] = (1, 3) if rev else (2, 3)       # CT or GT
+        intron[-2:] = (0, 1) if rev else (0, 2)      # AC or AG
+        genome += [intron, exons[i + 1]]
+    query = [_mutate_codes(rng, ex, 0.04, 0.01) for ex in exons]
+    query.append(rng.integers(0, 4, junk).astype(np.uint8))
+    return dict(qseq=np.concatenate(query).astype(np.uint8),
+                tseq=np.concatenate(genome).astype(np.uint8), zdrop=zdrop,
+                end_bonus=-1, flag=flag, w=-1)
+
+
+def long_splice_wave(seed=0):
+    """(name, jobs, noncan): an exts2 wave of 24 short spliced jobs and
+    one job for each of LONG_TARGETS, GT..AG or CT..AC introns under the
+    forward, the reverse and both splice flags in turn (two introns past
+    60 kb), and one z-dropped job over 32769 bases (400 unrelated bases
+    end its query)."""
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    rng = np.random.default_rng(seed)
+    F, R = K.KSW_EZ_SPLICE_FOR, K.KSW_EZ_SPLICE_REV
+    jobs = [_spliced_job(rng, F | R, int(rng.integers(2, 5)))
+            for _ in range(24)]
+    for k, tlen in enumerate(LONG_TARGETS):
+        jobs.append(_long_spliced_job(rng, tlen, (F, R, F | R)[k % 3],
+                                      n_introns=1 + (tlen > 60000)))
+    jobs.append(_long_spliced_job(rng, 32769, F, junk=400, zdrop=100))
+    return "long-target spliced wave", jobs, 9
+
+
+def long_extd2_jobs(seed=0):
+    """Twelve short extd2 jobs and two banded ones whose targets pass 2^15
+    bases (40000 at w 500, 70000 at w 200): the query the target at 5%
+    substitutions with a 7-base deletion and, 10 kb on, a 7-base
+    insertion, so that the alignment stays inside the band to the end."""
+    rng = np.random.default_rng(seed)
+    jobs = _ext_jobs(rng, 12, (50, 400))
+    for tlen, w in ((40000, 500), (70000, 200)):
+        t = rng.integers(0, 4, tlen).astype(np.uint8)
+        q = _mutate_codes(rng, t, 0.05, 0.0)
+        q = np.concatenate([q[:20000], q[20007:30000],
+                            rng.integers(0, 4, 7), q[30000:]])
+        jobs.append(dict(qseq=q.astype(np.uint8), tseq=t, w=w, zdrop=400,
+                         end_bonus=-1, flag=0))
+    return jobs
+
+
 def compare_splice_signal(name, jobs, noncan, reps=11, phase=3):
     """The splice-signal kernel against its plain version
     (ksw2_pack.donor_acceptor job by job): bit-exact; its CUDA-event time
@@ -897,6 +968,52 @@ def ksw_bounds(pk, ez_h, splice):
     walk = _bound(2 * int(steps.sum()) + meta.nbytes + ez_h.nbytes,
                   int(steps.sum()) * WALK_OPS_PER_STEP)
     return fwd + (cells,), walk + (int(steps.sum()),), int(steps.max())
+
+
+def compare_ksw_native(name, jobs, scoring, splice, reps=5, phase=3):
+    """The ksw2 batch call on the card against the native host library
+    (the reference's SIMD build): every Ez field and CIGAR equal; then the
+    forward kernel as planned and the walk kernel timed with CUDA events
+    beside their bounds. For launches whose longest job has too many rows
+    for the plain versions' comparison (about a millisecond a row on the
+    card). Returns the card's results, a K.Ez a job."""
+    from minimap2_chaindp_tpu_torch import native
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    q, e, q2, e2n, a, b = scoring
+    mat = K.gen_simple_mat(5, a, b)
+    batch, host = ((KE.exts2_batch, native.exts2_batch_native) if splice
+                   else (KE.extd2_batch, native.extd2_batch_native))
+    got = batch(jobs, mat, q, e, q2, e2n, device="cuda")
+    want = host(jobs, mat, q, e, q2, e2n)
+    check(want is not None, f"{name}: the native host library is missing")
+    key = lambda g: (g.score, g.max, g.zdropped, g.max_q, g.max_t, g.mqe,
+                     g.mqe_t, g.mte, g.mte_q, g.reach_end, list(g.cigar))
+    n_diff = sum(key(x) != key(y) for x, y in zip(got, want))
+    check(n_diff == 0, f"{name}: {n_diff} jobs' Ez or CIGAR differ from "
+          "the native host library")
+    pk, ts, kw = ksw_inputs(jobs, scoring, splice, "cuda")
+    args = [ts[k] for k in KE.FORWARD_KEYS]
+    wkw = dict(splice=splice, ops_total=pk["ops_total"])
+    p, ez = KE.ksw_forward(*args, **kw)
+    ez_w = ez.clone()
+    KE.ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez_w, **wkw)
+    ms = _time_ms(lambda: KE.ksw_forward(*args, **kw), reps)
+    walk_ms = _time_ms(lambda: KE.ksw_walk(
+        p, ts["poff"], ts["meta"], ts["order"], ez.clone(), **wkw), reps)
+    (b_ms, b_by, cells), (wb_ms, wb_by, n_steps), longest = ksw_bounds(
+        pk, ez_w.cpu().numpy(), splice)
+    rows = pk["rows_max"]
+    log(f"phase {phase} ksw {name}: {len(jobs)} jobs in launches "
+        f"{[(g['variant'], g['ring'], g['threads'], g['count']) for g in kw['groups']]}"
+        f", equal to the native host library (Ez, CIGAR); forward "
+        f"{ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} ({cells} live cells), "
+        f"share {b_ms / ms:.1%}, longest job {rows} rows, "
+        f"{ms * 1e6 / rows:.1f} ns per row; walk {walk_ms:.3f} ms, bound "
+        f"{wb_ms:.5f} ms by {wb_by} ({n_steps} steps), share "
+        f"{wb_ms / walk_ms:.1%}, longest walk {longest} steps, "
+        f"{walk_ms * 1e6 / longest:.1f} ns per step")
+    return got
 
 
 def _check_walk(name, pk, ez_w, ops, ez_wr, ops_ref):
@@ -1095,6 +1212,13 @@ def phase_kernels():
         forced |= set(res["variant_ms"])
     check(forced == set(KPK.VARIANTS), "phase 3 did not launch every "
           f"forward variant: {sorted(forced)}")
+    # targets past 16384 and 32768 bases, against the native host library
+    _, o = set_opt("splice")
+    name, jobs, noncan = long_splice_wave()
+    compare_ksw_native(name, jobs, (o.q, o.e, o.q2, noncan, o.a, o.b), True)
+    _, o = set_opt("map-ont")
+    compare_ksw_native("long-target extd2 jobs", long_extd2_jobs(),
+                       (o.q, o.e, o.q2, o.e2, o.a, o.b), False)
     # the signal kernel; the cDNA-sized wave, last, is its record
     for name, jobs, noncan in [*splice_signal_waves(),
                                splice_signal_cdna_wave()]:
@@ -1273,9 +1397,11 @@ def _mutate(rng, s: str, err: float) -> str:
 
 
 def _write_spliced(ref, out_ref, out_reads, seed=7, genes=GENES,
-                   transcripts=TRANSCRIPTS, intron_len=INTRON_LEN):
+                   transcripts=TRANSCRIPTS, intron_len=INTRON_LEN,
+                   long_every=LONG_INTRON_EVERY):
     """A copy of `ref` with `genes` gene loci patched in (EXONS exons of
-    EXON_LEN bp, intron_len bp introns with GT..AG at their edges) and
+    EXON_LEN bp, intron_len bp introns with GT..AG at their edges, one of
+    them LONG_INTRON_LEN bp in every `long_every`-th gene) and
     `transcripts` cDNA reads from them (each gene's full transcript and one
     that skips an internal exon) at SPLICE_ERR error, half reverse
     complemented (case, N and IUPAC codes complemented as the reference
@@ -1293,6 +1419,9 @@ def _write_spliced(ref, out_ref, out_reads, seed=7, genes=GENES,
         n_ex = int(rng.integers(*EXONS))
         exl = rng.integers(*EXON_LEN, n_ex)
         inl = rng.integers(*intron_len, n_ex - 1)
+        if g % long_every == long_every - 1:
+            inl[int(rng.integers(0, n_ex - 1))] = rng.integers(
+                *LONG_INTRON_LEN)
         pos = (g // len(recs)) * slot + int(
             rng.integers(0, slot - int(exl.sum() + inl.sum())))
         exons = []
@@ -1438,7 +1567,8 @@ def _staged_run(phase, mi, mo, batches):
     log(f"phase {phase} reads/s: port (cuda) {n / t_port:.1f} "
         f"({t_port:.2f} s), host {n / t_host:.1f} ({t_host:.2f} s), "
         f"-t {THREADS} (fragments/s)")
-    log(f"phase {phase} extension jobs: {ex.n_device} on the card, "
+    log(f"phase {phase} extension jobs: {ex.n_device} on the card "
+        f"({ex.n_long_device} with a side past 16384 bases), "
         f"{ex.n_native} native, {ex.n_host} numpy model; ksw forward "
         f"launches {rec['ksw']} {rec['by_variant']}, walk launches "
         f"{rec['walk']}, splice signal launches {rec['signal']} (p budget "
@@ -1454,7 +1584,8 @@ def _staged_run(phase, mi, mo, batches):
     for v in sorted(rec["planned"]):
         check(rec["by_variant"][v] > 0, f"phase {phase}: the waves held "
               f"jobs for the {v} forward variant, which never launched")
-    rec.update(jobs=n_jobs, jobs_device=ex.n_device, mi=mi, mo=mo,
+    rec.update(jobs=n_jobs, jobs_device=ex.n_device,
+               jobs_long_device=ex.n_long_device, mi=mi, mo=mo,
                batches=batches, host_lines=host_lines)
     return host_lines, port_lines, rt, rec
 
@@ -1472,8 +1603,10 @@ def _main_path_kernels(phase, rec, scoring):
         chain_err = max(chain_err, chain_res[mode]["err"])
     jobs, splice = rec["biggest"]
     pk, ts, kw = ksw_inputs(jobs, scoring, splice, "cuda")
-    res = compare_ksw(f"main-path input ({len(jobs)} jobs)", pk, ts, kw,
-                      reps=3, phase=phase)
+    n_long = sum(max(len(j["qseq"]), len(j["tseq"])) > 16384 for j in jobs)
+    res = compare_ksw(f"main-path input ({len(jobs)} jobs, {n_long} with "
+                      "a side past 16384 bases)", pk, ts, kw, reps=3,
+                      phase=phase)
     return dict(rec, **res, chain_err=chain_err, chain_res=chain_res)
 
 
@@ -1493,6 +1626,8 @@ def phase_splice(ref):
     check(rec["jobs"] and rec["jobs_device"] >= 0.9 * rec["jobs"],
           f"phase 5: only {rec['jobs_device']} of {rec['jobs']} extension "
           "jobs ran on the card")
+    check(rec["jobs_long_device"] > 0, "phase 5: no extension job past "
+          "16384 bases ran on the card")
     check(rec["modes"].get("cdna", 0) > 0,
           "phase 5: the chain kernel never ran in cdna mode")
     n_spliced = sum(1 for ls in port for ln in ls
@@ -2486,7 +2621,8 @@ P11_GENOME = (500, 2_000_000, 42)
 P11_READS = (1000, 10_000, 0.10, 5)           # reads, length, error, seed
 P11_COUNTERS = ("device_reads", "staged_device_reads", "staged_frags",
                 "native_finish", "fallback", "host_chain_oversized",
-                "host_chain_bw", "ext_device", "steal_device_reads",
+                "host_chain_bw", "ext_device", "ext_long_device",
+                "ext_native", "steal_device_reads",
                 "steal_chunks", "steal_cold_chunks", "steal_join_ms",
                 "steal_dev_fallback", "fast_native")
 
@@ -2947,6 +3083,9 @@ def phase_masked(inputs=None, ref=None):
           "phase 12: a device run launched none of its kernels")
     check(runs["sr_device"]["launches"]["signal"] == 0,
           "phase 12 sr_device: an extd2 wave launched the splice signal")
+    check(runs["splice_device"]["counters"]["ext_long_device"] > 0,
+          "phase 12 splice_device: no extension job past 16384 bases ran "
+          "on the card")
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in ("chain", "ksw", "walk", "signal")}
     secs = time.perf_counter() - t_phase

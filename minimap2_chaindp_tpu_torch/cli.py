@@ -48,7 +48,9 @@ rounds are `skeleton` spans beside the executor's `ext_wave` with
 the next input batch; the stealing lane's chunks are `steal_prep`,
 `steal_flow` (around the lane's `flow`), `steal_finish`. `native_finish`,
 `ext_native` and `ext_host` name both a span and a counter of reads or
-jobs. The flow's routing counters, summed per batch: `flow_units`
+jobs; `ext_device` counts the jobs the ksw2 kernels took, and
+`ext_long_device` those of them with a side past 16384 bases. The flow's
+routing counters, summed per batch: `flow_units`
 (single-segment units with minimizers offered to it) = `flow_empty` (no
 anchor) + `flow_out_minimizers`, `flow_out_anchors`, `flow_out_shard`,
 `flow_out_qspan`, `flow_out_exc`, `flow_out_flag` (each reason a unit

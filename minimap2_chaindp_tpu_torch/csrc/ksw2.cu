@@ -51,7 +51,9 @@
 //   every row more than the passes they save), rings up to 16384 lanes
 //   (224 KB of dynamic shared memory).  The row's maximum is two
 //   warp-reduce instructions, one shared stage and two more; the scan key
-//   carries the lane, so the winner needs no division.  A call is one
+//   carries the lane's offset from st0, so the winner needs no division,
+//   and the offset is bounded by the band, not by the target: a job of any
+//   target length whose ring fits takes this form.  A call is one
 //   launch with the ring of its widest job: a narrow job's block takes
 //   the same shared memory, which costs occupancy only where rings are
 //   wide, and launches by ring size measured slower (every launch that
@@ -68,6 +70,8 @@
 // ksw_forward_kernel keeps the rows in device memory, one block per job,
 // two barriers per 512-lane chunk: it serves jobs whose ring exceeds
 // shared memory (the shorter sequence over 16352 bases), chosen by size.
+// Its scan key keeps the lane t itself in the tail (2^28 + t), which holds
+// targets of up to 2^31 - 2^28 lanes.
 //
 // ksw_splice_signal_kernel computes an exts2 wave's donor/acceptor signal
 // (ops/ksw2_pack.py:donor_acceptor, ksw2_exts2_sse.c:112-131) from the
@@ -102,8 +106,12 @@ constexpr int kMetaCols = 16;
 constexpr int kEzCols = 24;
 constexpr int kTailKey = 0x10000000;  // scan key of the scalar tail lanes
 // the shared-memory forms' scan key: the place in the reference's scan
-// order above the lane t, so that the winner's lane needs no division
-// (lanes stay below 2^15: targets of up to 16384 bases plus slack)
+// order above the lane's offset t - st0 from the row's first live lane, so
+// that the winner's lane needs no division.  The offset lies within the
+// job's band, so within its ring of at most 16384 lanes, below 2^15
+// whatever the target's length; places stay below 2^15 too (a row's
+// lane-of-4 columns number fewer than its ring's lanes), so keys stay
+// below 2^30
 constexpr int kKeyLaneBits = 15;
 constexpr int kKeyLaneMask = (1 << kKeyLaneBits) - 1;
 constexpr int kTailOrder = kKeyLaneMask;  // after every lane-of-4 column
@@ -385,14 +393,14 @@ __global__ void __launch_bounds__(kMaxThreads)
           if (t == en0) {
             hn = r == 0 ? vn - qe
                         : (en0 > 0 ? hold_en0 + un : hold_en0 + vn);
-            key = t;  // place 0: en0 comes first
+            key = t - st0;  // place 0: en0 comes first
             bc[B_HEN0] = hn;
           } else {
             hn = H[sl] + vn;
             const int off = t - st0;
             const int place =
                 t < en1 ? 1 + (off & 3) * nr4 + (off >> 2) : kTailOrder;
-            key = (place << kKeyLaneBits) | t;
+            key = (place << kKeyLaneBits) | off;
           }
           H[sl] = hn;
           if (t == st0) bc[B_HST0] = hn;
@@ -420,7 +428,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       best_h = red[par][src][0];
       best_k = red[par][src][1];
       warp_best(best_h, best_k);
-      const int max_t = best_k & kKeyLaneMask;
+      const int max_t = st0 + (best_k & kKeyLaneMask);
       const int hen0 = bc[B_HEN0];
       const int hst0 = bc[B_HST0];
       // H at en0 - 1 after this row: written now, or left from before

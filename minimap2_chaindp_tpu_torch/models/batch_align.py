@@ -1,37 +1,56 @@
 """Extension-job waves: the scheduler that gathers every in-flight read's
 current jobs (`run_scheduler`) and the executors it hands them to.
 
-Port of minimap2_chaindp_tpu/models/batch_align.py. `run_scheduler` and the
-domain caps are copied from it (:21-23, :200-230). `CudaAlignExecutor`
-takes the place of its DeviceAlignExecutor (:30-197) with the same
-interface (`run(jobs) -> thunks`) and counters (`n_device`, `n_native`,
-`n_host`): jobs with len(qseq) + len(tseq) <= `native_max` go to the native
-host SIMD batch first (the native crossover, :114-123); of the rest, jobs
-inside the kernel's domain go to the CUDA ksw2 kernels with the backtrack
-walk on the card (exts2 under splice scoring, extd2 otherwise); what is
-left, and waves with fewer than MIN_DEV_JOBS such jobs, goes to the native
-host batch, and to the NumPy model only where the native library is
-missing. There is no timeout and no fallback: a CUDA error raises.
+Port of minimap2_chaindp_tpu/models/batch_align.py. `run_scheduler` is
+copied from it (:200-230). `CudaAlignExecutor` takes the place of its
+DeviceAlignExecutor (:30-197) with the same interface (`run(jobs) ->
+thunks`) and counters (`n_device`, `n_native`, `n_host`): jobs with
+len(qseq) + len(tseq) <= `native_max` go to the native host SIMD batch
+first (the native crossover, :114-123); of the rest, jobs inside the
+kernels' domain go to the CUDA ksw2 kernels with the backtrack walk on the
+card (exts2 under splice scoring, extd2 otherwise); what is left, and
+waves with fewer than MIN_DEV_JOBS such jobs, goes to the native host
+batch, and to the NumPy model only where the native library is missing.
+There is no timeout and no fallback: a CUDA error raises.
 `HostAlignExecutor` is the host half alone (DeviceAlignExecutor with
 use_device=False), which HostRuntime uses.
+
+The kernels' domain is a rule on what a job's shape costs them, not the
+JAX executor's caps of 16384 bases a side (the Pallas kernel's):
+- its backtrack bytes (`ksw2_pack._p_sizes`: rows x the band's row
+  stride) fit one launch's `ksw2_ext.P_BUDGET`, so that it is never the
+  launch that exhausts the card. That is what a long job costs: its
+  on-chip rows are sized by its band, not by its target (a 300-base
+  spliced query over a 40 kb target needs a ring of 512 lanes), and a
+  ring past shared memory takes the device-memory form;
+- query plus target stay within LEN_MAX bases, so that its rows and
+  target lanes fit the kernels' 32-bit indices (the device-memory
+  form's scan key is 2^28 + t).
+A job the card takes with a side past 16384 bases, which the JAX executor
+leaves to the host, is counted as ext_long_device too.
 """
 from __future__ import annotations
 
 import threading
 from contextlib import nullcontext
 
+import numpy as np
 import torch
 
 from .. import constants as C
 from ..align import _host_thunk
 from ..ops import ksw2 as K
 from ..ops import ksw2_ext as KE
+from ..ops.ksw2_pack import _job_fields, _p_sizes
 
 __all__ = ["CudaAlignExecutor", "HostAlignExecutor", "run_scheduler"]
 
-# domain caps of the extension kernels (jobs beyond them stay on the host)
-MAX_TLEN = 16384
-MAX_QLEN = 16384
+# query plus target bases of a job on the card: the kernels' 32-bit
+# indices (see the module docstring)
+LEN_MAX = 1 << 30
+# a side longer than this counts the job as ext_long_device (the JAX
+# executor's caps, :21-23 of the JAX package's module)
+LONG_SIDE = 16384
 MIN_DEV_JOBS = 4     # tiny waves aren't worth a device launch
 # at or above this crossover the native one-call align skeleton stays on
 # for the executor's opt (models/batch_align.py:25-27, :74-91)
@@ -51,6 +70,7 @@ class HostAlignExecutor:
         self.mat = K.gen_simple_mat(5, opt.a, opt.b)
         self.splice = bool(opt.flag & C.MM_F_SPLICE)
         self.n_device = self.n_native = self.n_host = 0
+        self.n_long_device = 0
         self._lock = threading.Lock()   # two map_stream batch threads
 
     def _span(self, name: str):
@@ -136,9 +156,14 @@ class CudaAlignExecutor(HostAlignExecutor):
                 and -int(self.mat.min()) <= 2 * min(opt.q + opt.e,
                                                     opt.q2 + opt.e2)
 
-    def _eligible(self, job) -> bool:
-        ql, tl = len(job["qseq"]), len(job["tseq"])
-        return self.enabled and 0 < ql <= MAX_QLEN and 0 < tl <= MAX_TLEN
+    def _eligible(self, jobs) -> tuple[np.ndarray, np.ndarray]:
+        """Which of `jobs` lie in the kernels' domain (module docstring),
+        and which of those have a side past LONG_SIDE bases."""
+        qlen, tlen, flag, w = _job_fields(jobs, self.splice)
+        ok = (qlen > 0) & (tlen > 0) & (qlen + tlen <= LEN_MAX) \
+            & (_p_sizes(qlen, tlen, flag, w, self.splice)[1]
+               <= KE.P_BUDGET)
+        return ok & self.enabled, np.maximum(qlen, tlen) > LONG_SIDE
 
     def run(self, jobs) -> list:
         thunks: list = [None] * len(jobs)
@@ -146,8 +171,8 @@ class CudaAlignExecutor(HostAlignExecutor):
             self._run_native(jobs, thunks, [
                 i for i, j in enumerate(jobs)
                 if len(j["qseq"]) + len(j["tseq"]) <= self.native_max])
-        dev = [i for i, j in enumerate(jobs)
-               if thunks[i] is None and self._eligible(j)]
+        ok, long_side = self._eligible(jobs)
+        dev = [i for i in np.flatnonzero(ok).tolist() if thunks[i] is None]
         if len(dev) < MIN_DEV_JOBS:
             dev = []
         if dev:
@@ -167,6 +192,7 @@ class CudaAlignExecutor(HostAlignExecutor):
             for i, ez in zip(dev, res):
                 thunks[i] = (lambda v=ez: v)
             self._count("device", len(dev))
+            self._count("long_device", int(long_side[dev].sum()))
         if all(t is not None for t in thunks):
             return thunks
         with self._span("ext_host"):

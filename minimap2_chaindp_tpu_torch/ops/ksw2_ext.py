@@ -20,7 +20,9 @@ device memory for jobs too wide for it, each longest job first. `ksw_walk` runs 
 `p`, a warp per job over windows of `p`. A wave is cut into calls whose
 `p` bytes stay within a budget
 (`P_BUDGET`, read at each call), so an unbanded 16 kb splice job (about
-0.5 GB of `p`) cannot exhaust the card.
+0.5 GB of `p`) cannot exhaust the card; the wave's longest jobs share the
+first calls (`split_by_budget`). A batch call runs on a CUDA stream of its
+thread's own (`_own_stream`).
 """
 from __future__ import annotations
 
@@ -663,6 +665,27 @@ def forward_scoring(mat, gaps, *, splice) -> tuple:
             long_diff)
 
 
+_thread = threading.local()
+
+
+def _own_stream(dev):
+    """A context that makes a CUDA stream of the calling thread's own the
+    current one on `dev` (nothing on the CPU). PyTorch's current stream is
+    one stream for every thread, and a pageable upload or read-back waits
+    for all the work on its stream: on a shared stream one batch thread's
+    copies would wait for the other's launches, a long spliced job's for
+    a tenth of a second or more. One stream a thread, kept, so that the
+    caching allocator reuses each thread's blocks on that thread's
+    stream."""
+    if dev.type != "cuda":
+        return nullcontext()
+    streams = _thread.__dict__.setdefault("streams", {})
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in streams:
+        streams[key] = torch.cuda.Stream(torch.device("cuda", key))
+    return torch.cuda.stream(streams[key])
+
+
 def _batch_async(jobs, mat, gaps, *, splice, noncan, device, timers=None):
     span = timers.time if timers is not None else (lambda _n: nullcontext())
     counting = timers is not None and active()
@@ -670,44 +693,47 @@ def _batch_async(jobs, mat, gaps, *, splice, noncan, device, timers=None):
     long_thres = gaps[4]
     dev = torch.device(device)
     staged = []
-    for idxs in split_by_budget(jobs, splice, P_BUDGET):
-        grp = [jobs[i] for i in idxs]
-        with span("ext_pack"):
-            pk = pack_jobs(grp, splice=splice, noncan=noncan)
-        with span("ext_upload"):
-            ts = device_inputs(pk, dev, splice=splice)
-        with span("ext_launch"):
-            p, ez = ksw_forward(
-                *(ts[k] for k in FORWARD_KEYS), groups=pk["groups"],
-                scoring=scoring, splice=splice, p_bytes=pk["p_bytes"],
-                t_total=pk["t_total"], band_max=pk["band_max"],
-                rows_max=pk["rows_max"])
-            ops = ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez,
-                           splice=splice, ops_total=pk["ops_total"])
-        if counting:
-            timers.count("ksw_h2d_bytes",
-                         sum(pk[k].nbytes for k in TENSOR_KEYS))
-            timers.count("ksw_signal_jobs", len(grp) if splice else 0)
-        staged.append((grp, pk, ez, ops))
+    with _own_stream(dev):
+        for idxs in split_by_budget(jobs, splice, P_BUDGET):
+            grp = [jobs[i] for i in idxs]
+            with span("ext_pack"):
+                pk = pack_jobs(grp, splice=splice, noncan=noncan)
+            with span("ext_upload"):
+                ts = device_inputs(pk, dev, splice=splice)
+            with span("ext_launch"):
+                p, ez = ksw_forward(
+                    *(ts[k] for k in FORWARD_KEYS), groups=pk["groups"],
+                    scoring=scoring, splice=splice, p_bytes=pk["p_bytes"],
+                    t_total=pk["t_total"], band_max=pk["band_max"],
+                    rows_max=pk["rows_max"])
+                ops = ksw_walk(p, ts["poff"], ts["meta"], ts["order"], ez,
+                               splice=splice, ops_total=pk["ops_total"])
+            if counting:
+                timers.count("ksw_h2d_bytes",
+                             sum(pk[k].nbytes for k in TENSOR_KEYS))
+                timers.count("ksw_signal_jobs", len(grp) if splice else 0)
+            staged.append((idxs, grp, pk, ez, ops))
 
     def collect_ez():
-        out_all = []
-        for grp, pk, ez, ops in staged:
-            if dev.type == "cuda":
-                # the card's work ends here; the read-back below copies
-                with span("device_wait"):
-                    torch.cuda.current_stream(dev).synchronize()
-            with span("ext_decode"):
-                ez_h = ez.cpu().numpy()
-                out = [_ez_from_row(ez_h[j]) for j in range(len(grp))]
-                ops_h = ops.cpu().numpy()
-                ops_l = [ops_h[int(o):] for o in pk["meta"][:, M_OPOFF]]
-                _decode_walk(grp, out, ez_h, ops_l, splice=splice,
-                             long_thres=long_thres)
-            if counting:
-                timers.count("ksw_d2h_bytes", ez_h.nbytes + ops_h.nbytes)
-                count_work(timers, grp, out, splice)
-            out_all.extend(out)
+        out_all = [None] * len(jobs)
+        with _own_stream(dev):
+            for idxs, grp, pk, ez, ops in staged:
+                if dev.type == "cuda":
+                    # the card's work ends here; the read-back below copies
+                    with span("device_wait"):
+                        torch.cuda.current_stream(dev).synchronize()
+                with span("ext_decode"):
+                    ez_h = ez.cpu().numpy()
+                    out = [_ez_from_row(ez_h[j]) for j in range(len(grp))]
+                    ops_h = ops.cpu().numpy()
+                    ops_l = [ops_h[int(o):] for o in pk["meta"][:, M_OPOFF]]
+                    _decode_walk(grp, out, ez_h, ops_l, splice=splice,
+                                 long_thres=long_thres)
+                if counting:
+                    timers.count("ksw_d2h_bytes", ez_h.nbytes + ops_h.nbytes)
+                    count_work(timers, grp, out, splice)
+                for i, res in zip(idxs, out):
+                    out_all[i] = res
         return lambda: out_all
     return collect_ez
 

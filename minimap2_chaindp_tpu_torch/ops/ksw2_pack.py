@@ -2,8 +2,10 @@
 the decode of the backtrack walk.
 
 The constants, `_pow2_at_least`, `_ez_from_row` and `_decode_walk` are
-copied verbatim from minimap2_chaindp_tpu/ops/ksw2_pallas.py (that module
-imports jax at :28, so it cannot be imported here); each names its origin.
+copied from minimap2_chaindp_tpu/ops/ksw2_pallas.py (that module imports
+jax at :28, so it cannot be imported here); each names its origin, and
+`_decode_walk` decodes through `_decode_cigar`, which keeps the
+interpreter lock.
 `pack_jobs` is the port's own: it lays every job's sequences and state out
 back to back (ragged, one offset per job) instead of the TPU's padded
 16-job groups, and each job's backtrack bytes go straight into the
@@ -12,6 +14,9 @@ the spill aliasing that `ksw2_pallas._p_flat_c_layout` replays falls out of
 the write order and is not needed here.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import numpy as np
 
@@ -82,13 +87,46 @@ def _ez_from_row(ez_row) -> "K.Ez":
     return res
 
 
+@functools.cache
+def _held_decode():
+    """The native library's mm2tpu_decode_cigar through a handle that keeps
+    the interpreter lock (ctypes.PyDLL), or None without the library. A
+    call takes microseconds; one that lets the lock go (native.py's CDLL
+    handle) waits on its return for the other batch thread's switch
+    interval whenever that thread runs Python, and a wave makes one call
+    a job."""
+    from .. import native
+    lib = native.load_align()
+    if lib is None:
+        return None
+    fn = ctypes.PyDLL(native._AL_SO).mm2tpu_decode_cigar
+    fn.restype = lib.mm2tpu_decode_cigar.restype
+    fn.argtypes = lib.mm2tpu_decode_cigar.argtypes
+    return fn
+
+
+def _decode_cigar(ops, n_ops, fin_i, fin_j, is_rev, min_intron_len=0):
+    """ksw2_backtrack.decode_cigar, its native call made through
+    `_held_decode`."""
+    fn = _held_decode() if n_ops else None
+    if fn is None:
+        from .ksw2_backtrack import decode_cigar
+        return decode_cigar(ops, n_ops, fin_i, fin_j, is_rev, min_intron_len)
+    o = np.ascontiguousarray(ops[:n_ops], dtype=np.int8)
+    out = np.empty(n_ops + 2, dtype=np.uint32)
+    n = fn(o.__array_interface__["data"][0], n_ops, fin_i, fin_j,
+           1 if is_rev else 0, min_intron_len,
+           out.__array_interface__["data"][0])
+    return out[:n].tolist()
+
+
 def _decode_walk(jobs, out, ez_h, ops_h, *, splice, long_thres):
     """Host decode of the fused walk's step codes: mirrors the kernel's
     walk-start decision (same ez inputs, so deterministic agreement), then
     run-length encodes the codes into each ez.cigar.
 
-    Copied from minimap2_chaindp_tpu/ops/ksw2_pallas.py:852-873."""
-    from .ksw2_backtrack import decode_cigar
+    Copied from minimap2_chaindp_tpu/ops/ksw2_pallas.py:852-873, the
+    CIGAR through `_decode_cigar`."""
     for j, (job, res) in enumerate(zip(jobs, out)):
         flag = job["flag"]
         if flag & K.KSW_EZ_SCORE_ONLY:
@@ -103,7 +141,7 @@ def _decode_walk(jobs, out, ez_h, ops_h, *, splice, long_thres):
         else:
             continue
         rev = bool(flag & K.KSW_EZ_REV_CIGAR)
-        res.cigar = decode_cigar(
+        res.cigar = _decode_cigar(
             ops_h[j], int(ez_h[j, C_FIN_K]), int(ez_h[j, C_FIN_I]),
             int(ez_h[j, C_FIN_J]), rev, long_thres if splice else 0)
 
@@ -283,7 +321,8 @@ def pack_jobs(jobs, *, splice: bool, noncan: int = 0):
     and noncan (the wave's, 0 for extd2). The splice signal is not packed:
     ksw2_ext.splice_signal computes it on the device from tseq and meta.
     Every array is filled for the whole wave at once; jobs need qlen >= 1
-    and tlen >= 1."""
+    and tlen >= 1, and the offsets of the whole wave have to fit int32
+    (ValueError otherwise)."""
     R = len(jobs)
     qlen, tlen, flag, w = _job_fields(jobs, splice)
     if R and (qlen.min() < 1 or tlen.min() < 1):
@@ -294,6 +333,8 @@ def pack_jobs(jobs, *, splice: bool, noncan: int = 0):
     qoff = np.cumsum(qsz) - qsz
     nrows = qlen + tlen - 1
     opoff = np.cumsum(nrows + 1) - (nrows + 1)
+    if max(int(tsz.sum()), int(qsz.sum()), int((nrows + 1).sum())) >= 2**31:
+        raise ValueError("a launch's offsets pass int32: split the wave")
     # each sequence and its zero pad, back to back, in one copy
     zeros = np.zeros(T_PAD + 15, dtype=np.uint8)
     tseq = np.concatenate([x for j, pad in zip(jobs, (tsz - tlen).tolist())
@@ -337,10 +378,16 @@ def pack_jobs(jobs, *, splice: bool, noncan: int = 0):
 
 def split_by_budget(jobs, splice: bool, budget: int) -> list[list[int]]:
     """Cut a wave into launches whose backtrack bytes stay within `budget`
-    (a job larger than the budget gets a launch of its own)."""
-    sizes = _p_sizes(*_job_fields(jobs, splice), splice)[1]
+    (a job larger than the budget gets a launch of its own), each a list
+    of indices into `jobs`. The jobs are taken longest first (rows,
+    descending; ties in the wave's order): a launch waits for its longest
+    job, and a wave's launches run one after another, so the long jobs
+    share the first launch instead of each holding up one of its own."""
+    qlen, tlen, flag, w = _job_fields(jobs, splice)
+    sizes = _p_sizes(qlen, tlen, flag, w, splice)[1]
     groups, cur, used = [], [], 0
-    for i, b in enumerate(sizes.tolist()):
+    for i in np.argsort(-(qlen + tlen), kind="stable").tolist():
+        b = int(sizes[i])
         if cur and used + b > budget:
             groups.append(cur)
             cur, used = [], 0

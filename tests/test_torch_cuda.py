@@ -3,8 +3,9 @@ version on every kernel case of chip_smoke.py (bit-exact f, p, flag), the
 ksw2 forward kernel (as the wrapper plans its launches and in every
 variant that holds the jobs, forced) and the walk kernel against theirs on
 chip_smoke.ksw_cases() and on jobs at the variants' boundaries (bit-exact
-ez rows, step codes, fin), the shared-memory limit against the native host
-library, the splice-signal kernel against its plain version
+ez rows, step codes, fin), the shared-memory limit and jobs past 16384
+and 32768 target bases against the native host library, the splice-signal
+kernel against its plain version
 (donor_acceptor job by job), exts2 waves on phase 3's N corpus against
 the plain versions and the native host library, and TorchRuntime on cuda
 against the port's HostRuntime (byte-identical lines) under map-ont and
@@ -272,6 +273,70 @@ def test_ksw_shared_memory_limit_on_card(cuda):
     key = lambda g: (g.score, g.max, g.zdropped, g.max_q, g.max_t, g.mqe,
                      g.mqe_t, g.mte, g.mte_q, g.reach_end, list(g.cigar))
     assert [key(g) for g in got] == [key(g) for g in want]
+
+
+@pytest.mark.parametrize("splice", [True, False], ids=["exts2", "extd2"])
+def test_ksw_long_targets_on_card(cuda, splice):
+    """Jobs past 16384 and past 32768 target bases, beside short ones, in
+    one launch: chip_smoke.long_splice_wave (targets of 16385, 32767,
+    32768, 32769, 65536 and 155000 bases with GT..AG or CT..AC introns
+    under each splice flag, one z-dropped) and long_extd2_jobs (banded
+    targets of 40000 and 70000 bases), the inputs on which a scan key that
+    packs the lane index itself in 15 bits was wrong. Their bands fit the
+    shared-memory ring, so the planned launch is that form's; the forward
+    and walk kernels against the native host library (the reference's
+    SIMD build), Ez field by Ez field and CIGAR by CIGAR
+    (chip_smoke.compare_ksw_native), and the device-memory form, forced,
+    against the planned launch: equal ez rows and step codes."""
+    import chip_smoke as S
+    from minimap2_chaindp_tpu_torch.ops import ksw2 as K
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    _, o = set_opt("splice" if splice else "map-ont")
+    if splice:
+        name, jobs, noncan = S.long_splice_wave()
+    else:
+        name, jobs, noncan = "long extd2", S.long_extd2_jobs(), o.e2
+    # jobs with lanes past 2^15 (targets of 32769 bases and more)
+    assert sum(len(j["tseq"]) > 32768 for j in jobs) == (4 if splice else 2)
+    got = S.compare_ksw_native(name, jobs, (o.q, o.e, o.q2, noncan, o.a,
+                                            o.b), splice, reps=1)
+    # the long jobs reached their targets' far lanes; the spliced one with
+    # 400 unrelated bases z-dropped there
+    assert max(g.max_t for g in got) >= (154_990 if splice else 69_999)
+    if splice:
+        assert got[-1].zdropped and got[-1].max_t == 32768
+    _forced_global_matches(jobs, K.gen_simple_mat(5, o.a, o.b), o, splice,
+                           noncan if splice else 0, cuda)
+
+
+def _forced_global_matches(jobs, mat, o, splice, noncan, dev):
+    """The wave's planned launch is one shared-memory launch; the
+    device-memory form, forced, gives the same ez rows and, over each
+    job's walk, the same step codes."""
+    from minimap2_chaindp_tpu_torch.ops import ksw2_ext as KE
+    from minimap2_chaindp_tpu_torch.ops import ksw2_pack as KPK
+    pk = KPK.pack_jobs(jobs, splice=splice, noncan=noncan)
+    assert [g["variant"] for g in pk["groups"]] == ["block"]
+    ts = KE.device_inputs(pk, dev, splice=splice)
+    scoring = KE.forward_scoring(
+        mat, KPK.gap_params(o.q, o.e, o.q2, 0 if splice else o.e2, splice),
+        splice=splice)
+    kw = dict(scoring=scoring, splice=splice, p_bytes=pk["p_bytes"],
+              t_total=pk["t_total"], band_max=pk["band_max"],
+              rows_max=pk["rows_max"])
+    args = [ts[k] for k in KE.FORWARD_KEYS]
+    runs = []
+    for force in (None, "global"):
+        order, groups = KPK.launch_plan(pk["meta"], force=force)
+        order = torch.from_numpy(order).to(dev)
+        p, ez = KE.ksw_forward(*args[:5], order, groups=groups, **kw)
+        ops = KE.ksw_walk(p, ts["poff"], ts["meta"], order, ez,
+                          splice=splice, ops_total=pk["ops_total"]).cpu()
+        ez = ez.cpu()
+        runs.append((ez, [ops[o:o + k].tolist() for o, k in zip(
+            pk["meta"][:, KPK.M_OPOFF], ez[:, KPK.C_FIN_K].tolist())]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert runs[0][1] == runs[1][1]
 
 
 @pytest.mark.parametrize("wave", range(4))

@@ -131,14 +131,19 @@ def test_plain_exts2_matches_numpy_model(corpus):
 
 def test_p_budget_splits_launches(monkeypatch):
     """A one-byte budget gives every job its own launch and changes no
-    result; score-only jobs need no backtrack bytes."""
+    result; score-only jobs need no backtrack bytes; launches take the
+    jobs longest first."""
     jobs = TP.gen_jobs(0, 6)
     jobs[0] = dict(jobs[0], flag=K.KSW_EZ_SCORE_ONLY)
     sizes = KPK._p_sizes(*KPK._job_fields(jobs, False), False)[1]
     assert sizes[0] == 0
     total = int(sizes.sum())
-    assert KPK.split_by_budget(jobs, False, total) == [list(range(6))]
-    assert KPK.split_by_budget(jobs, False, 1) == [[i] for i in range(6)]
+    rows = [len(j["qseq"]) + len(j["tseq"]) for j in jobs]
+    longest_first = sorted(range(6), key=lambda i: -rows[i])
+    assert longest_first != list(range(6))
+    assert KPK.split_by_budget(jobs, False, total) == [longest_first]
+    assert KPK.split_by_budget(jobs, False, 1) == \
+        [[i] for i in longest_first]
     mat = K.gen_simple_mat(5, 2, 4)
     one = KE.extd2_batch(jobs, mat, 4, 2, 24, 1, device="cpu")
     groups = []
@@ -152,6 +157,25 @@ def test_p_budget_splits_launches(monkeypatch):
     cut = KE.extd2_batch(jobs, mat, 4, 2, 24, 1, device="cpu")
     assert groups == [1] * 6
     assert [ez_key(g) for g in one] == [ez_key(g) for g in cut]
+
+
+def test_decode_cigar_holding_the_lock_matches():
+    """ksw2_pack._decode_cigar, whose native call keeps the interpreter
+    lock (a PyDLL handle), equals ksw2_backtrack.decode_cigar on step codes
+    of every state, with and without a tail, reversed or not, with and
+    without the intron threshold, and on walks of no step."""
+    import ctypes
+    from minimap2_chaindp_tpu_torch.ops.ksw2_backtrack import decode_cigar
+    fn = KPK._held_decode()
+    assert fn is not None and fn._flags_ & ctypes._FUNCFLAG_PYTHONAPI
+    rng = np.random.default_rng(11)
+    for k in range(400):
+        n = int(rng.integers(0, 300)) if k % 10 else 0
+        ops = np.repeat(rng.integers(0, 5, 40).astype(np.int8),
+                        rng.integers(1, 30, 40))[:n + 5]
+        fin_i, fin_j = (int(x) for x in rng.integers(-1, 40, 2))
+        args = (ops, n, fin_i, fin_j, bool(k % 2), (0, 20)[k % 3 > 0])
+        assert KPK._decode_cigar(*args) == decode_cigar(*args), k
 
 
 def test_out_of_domain_raises():
