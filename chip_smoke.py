@@ -31,10 +31,10 @@ Phases, each printing its own lines:
   7. the runtime's routings (models/runtime.py, models/steal.py) on the
      inputs of phases 4-6 at -t 3, each timed after a warm-up beside
      HostRuntime: phase 4's reads in batches of LANE_BATCH_READS under
-     steal, share, host, device and device with the crossovers of
-     utils/route_sweep.py; phase 6's pairs under steal, share and device
-     with seed collection on the card; phase 5's transcripts under device
-     with the extension crossover. Byte-identical to HostRuntime, the
+     steal, share, host, device and device with the crossovers measured
+     on the H100 (LANE_* below); phase 6's pairs under steal, share and
+     device with seed collection on the card; phase 5's transcripts under
+     device with the extension crossover. Byte-identical to HostRuntime, the
      stealing lane takes reads of phase 4, and the card collects the seeds
      of >= 90% of phase 6's staged units.
   8. the rest of the port: (a) the device index build (index/build_device.py)
@@ -48,23 +48,10 @@ Phases, each printing its own lines:
      dryrun_multichip(2) on the card; (f) the host routing and HostRuntime
      timed in turns (ABAB, then BABA) on phase 7's batches at -t 3.
      Byte-identical to HostRuntime, >= 90% of the reads chained by the
-     kernel on both meshes.
-  9. the port's bench (`python -m minimap2_chaindp_tpu_torch.bench`) as a
-     subprocess: the chain kernel's headline at 8192 x 1024, the native
-     host baseline, the end-to-end rows (10 kb, 1 kb, sr pairs, the
-     stealing routing; BENCH_E2E_SCALE of their reads, BENCH_STEADY timed
-     pairs) and the flow row. Its last line must parse, stay under 2000
-     characters, name the card, hold the headline rate, and every pair of
-     runs must write the same SAM on the card's lane and the host's; then
-     the headline batch is held against the plain version here, and so is
-     the largest input of each kernel wrapper that each row and the flow
-     row kept (`--keep-inputs`, utils/kernel_inputs.py): the chain kernel
-     by mode in every row, the ksw2 forward and walk kernels on the sr
-     row's largest extension launch (and any other row's). Before and
-     after the bench the card's SM clock, power, temperature and compute
-     processes are logged; every runtime of phases 4-8 is closed where
-     it was used, and none may still keep a thread or a mesh rank.
- 10. the presets of the JAX package on phase 9's 50 Mbp genome, each
+     kernel on both meshes; at the phase's end no runtime of phases 4-8
+     may still keep a -t pool thread or a mesh rank.
+  9. retired: the port's bench, superseded by benchmark/run.py.
+ 10. the presets of the JAX package on a 50 Mbp genome, each
      through TorchRuntime on the card and HostRuntime at -t 3, byte-
      identical: sr single-end reads, map-pb reads and a cut of them under
      map10k, an all-vs-all set under ava-ont and ava-pb (PAF; a cut with
@@ -119,10 +106,9 @@ Each of phases 4-6, each run of phase 7, each path of phase 8 (entry(),
 each timed run of the two meshes, the dry run) and each run and option
 case of phase 10 and each run of phases 11 and 12 sets the launch
 counters to 0 just before its run and reads them just after; the kernels
-line counts phases 4, 5, 6, 8, 9, 10, 11 and 12 (phase 9's processes
-start from 0 and report their counts in the bench's record), with phase
-9's to 12's also apart (launches_phase9 ... launches_phase12) beside the
-checks of their kept inputs (in checks_phase10 the option cases' as
+line counts phases 4, 5, 6, 8, 10, 11 and 12, with phase 10's to 12's
+also apart (launches_phase10 ... launches_phase12) beside the checks of
+their kept inputs (in checks_phase10 the option cases' as
 opt_<case>; checks_phase11 by routing and mode; checks_phase12 by input
 and routing, the code-4 launches as <input>_<routing>_code4). A mesh's other ranks
 are processes of their own, but in a 1 x I mesh rank 0 runs every chain (the index-0
@@ -225,7 +211,7 @@ PAIRS, PAIR_LEN, FRAG_LEN = 5000, 150, (250, 500)
 # has batches after the first and the stealing lane pulls); the share of
 # the flow under the "share" routing, with the JAX runtime's chain
 # crossover, whose host lane (5 bases an anchor) takes 10 kb reads; and the
-# crossovers that utils/route_sweep.py measured on the H100 (PERF.md §7).
+# crossovers measured on the H100 (`git show 1a3adb2:PERF.md`).
 # The runtime's defaults stay at 0
 LANE_BATCH_READS = 250
 LANE_SHARE = 0.5
@@ -234,12 +220,6 @@ LANE_CHAIN_MAX = 1024           # anchors
 LANE_EXT_MAX = 256              # bases of query plus target
 # phase 8: the host routing and HostRuntime in turns, ABAB then BABA
 HOST_GAP_ORDER = "ABABBABA"
-# phase 9: the port's bench at the headline's full shape (8192 x 1024), its
-# end-to-end rows cut to an eighth of their reads and 2 timed pairs each
-# (the cut keeps the smoke, phase 10 included, inside its time limit)
-BENCH_E2E_SCALE = 0.125
-BENCH_STEADY = 2
-BENCH_TIMEOUT_S = 600
 
 
 class SmokeFailure(Exception):
@@ -2072,147 +2052,24 @@ def phase_rest(e2e):
         "paths): " + ", ".join(f"{k} {nl} {bf}"
                                for k, (nl, bf) in per_path.items())
         + f"; {launches} in all")
+    # every runtime of phases 4-8 was closed where it was used: none may
+    # still hold a -t pool thread or a mesh rank
+    import multiprocessing
+    import threading
+    left = sorted(t.name for t in [*threading.enumerate(),
+                                   *multiprocessing.active_children()]
+                  if t.name.startswith("mm2tpu-"))
+    check(not left, f"phase 8: runtimes still running: {left}")
     return dict(launches=launches, by_form=by_form, index=idx,
                 meshes=meshes, gap=gap)
 
 
-# ---------------------------------------------------------------- phase 9
-CARD_STATE = "clocks.sm,clocks.max.sm,power.draw,temperature.gpu"
-
-
-def _card_state(when: str) -> dict:
-    """The card's SM clock (and its maximum), power draw and temperature,
-    its compute processes, and what this process still runs: threads of
-    the runtimes' -t pools and child processes (a mesh's ranks). Logged
-    and returned."""
-    import multiprocessing
-    import threading
-    q = subprocess.run(["nvidia-smi", f"--query-gpu={CARD_STATE}",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60)
-    apps = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
-                           "process_name,used_memory",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60)
-    pools = sorted(t.name for t in threading.enumerate()
-                   if t.name.startswith("mm2tpu-"))
-    kids = [c.pid for c in multiprocessing.active_children()]
-    state = dict(gpu=q.stdout.strip(), apps=[a.strip() for a in
-                                             apps.stdout.splitlines()
-                                             if a.strip()],
-                 pool_threads=pools, children=kids)
-    log(f"phase 9 card {when}: {CARD_STATE} = {state['gpu']}; compute "
-        f"processes {state['apps']}; this process's runtime threads "
-        f"{pools or 'none'}, child processes {kids or 'none'}")
-    return state
-
-
-def phase_bench():
-    """The port's bench (minimap2_chaindp_tpu_torch/bench.py) as a
-    subprocess: its record must parse, stay under 2000 characters, name
-    the card, hold a headline rate and every pair row's SAM equal on both
-    lanes. The bench process counts its launches from 0 (each row and the
-    flow row in processes of their own) and reports them in its record;
-    they are phase 9's. Each row and the flow row keep the largest input
-    of each kernel wrapper (--keep-inputs): here every one of them, and
-    the headline batch, is held against the plain version (comparison
-    launches, not counted)."""
-    import shutil
-    import torch
-    from minimap2_chaindp_tpu_torch import bench as B
-    from minimap2_chaindp_tpu_torch.ops import chain_dp as TD
-    from minimap2_chaindp_tpu_torch.utils import kernel_inputs as KI
-    t0 = time.perf_counter()
-    keep = os.path.join(SMOKE_DIR, "bench_inputs")
-    shutil.rmtree(keep, ignore_errors=True)
-    # every runtime of phases 4-8 was closed where it was used: none may
-    # still hold a thread or a mesh rank; this process's cached device
-    # memory goes back to the card
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    before = _card_state("before the bench")
-    check(not before["pool_threads"] and not before["children"],
-          "phase 9: a runtime of phases 4-8 is still running")
-    out = subprocess.run(
-        [sys.executable, "-m", "minimap2_chaindp_tpu_torch.bench",
-         "--e2e-scale", str(BENCH_E2E_SCALE), "--steady", str(BENCH_STEADY),
-         "--keep-inputs", keep],
-        capture_output=True, text=True, timeout=BENCH_TIMEOUT_S, cwd=ROOT)
-    for line in out.stderr.splitlines():
-        if line.startswith("[bench]"):
-            log(f"phase 9 {line}")
-    after = _card_state("after the bench")
-    check(out.returncode == 0, f"phase 9: the bench exited "
-          f"{out.returncode}: {out.stderr.strip()[-2000:]}")
-    last = out.stdout.strip().splitlines()[-1]
-    check(len(last) < 2000, f"phase 9: the record has {len(last)} chars")
-    rec = json.loads(last)
-    log(f"phase 9 record: {last}")
-    check(rec["device"]["platform"] == "gpu" and rec["device"]["power_limit"],
-          f"phase 9: the record's device is {rec['device']}")
-    check(rec["metric"] == "chaindp_anchors_per_s" and rec["value"]
-          and rec["baseline_host_native_1core"]
-          and rec["check_batch1"] == "bit-exact",
-          "phase 9: no headline rate, baseline or batch check")
-    pairs = f"{BENCH_STEADY + 1}/{BENCH_STEADY + 1}"
-    for row in B.E2E_ROWS:
-        check(rec[f"{row}_sam_identical"] == pairs
-              and rec[f"{row}_cuda_vs_host_paired_ratio"] is not None,
-              f"phase 9: row {row} is incomplete")
-    check(rec["flow_measured_reads_per_s"] is not None,
-          "phase 9: no flow row")
-    n = rec["launches"]
-    check(n["chain"] > 0 and n["ksw"] > 0 and n["walk"] > 0,
-          f"phase 9: the bench's paths launched {n}")
-    secs_bench = time.perf_counter() - t0
-    args, use_exc = B.headline_batch(B.N_READS, 1, torch.device("cuda"))
-    got = B.dispatch(args, use_exc)
-    want, plain_ms = _timed(lambda: TD.chain_scores_batch_ref(
-        *args, **B.CHAIN_KW, use_exc=use_exc))
-    for label, g, w in zip(("f", "p", "flag"), got, want):
-        check(torch.equal(g, w), f"phase 9: the headline batch's {label} "
-              "differs from the plain version")
-    del args, got, want
-    # every row's largest kernel inputs against the plain versions
-    chain, ksw = {}, {}
-    for row in [*B.E2E_ROWS, "flow"]:
-        kept = KI.load(os.path.join(keep, row), "cuda")
-        check(any(k.startswith("chain_") for k in kept),
-              f"phase 9: row {row} kept no chain input")
-        for name, val in kept.items():
-            if name == "ksw":
-                pk, ts, kw = packed_ksw_inputs(
-                    val["jobs"], val["scoring"], val["splice"],
-                    val["noncan"], "cuda")
-                ksw[row] = compare_ksw(
-                    f"{row} input ({len(val['jobs'])} jobs)", pk, ts, kw,
-                    reps=3, phase=9)
-                continue
-            ts, kw = val
-            mode = name[len("chain_"):]
-            chain[f"{row}_{mode}"] = compare_kernel(
-                f"{row} {mode} input R={ts[1].shape[0]} "
-                f"max_n={kw['max_n']}", ts, kw, reps=3, phase=9)
-    check("e2e_sr150" in ksw, "phase 9: the sr row kept no extension "
-          "launch")
-    secs = time.perf_counter() - t0
-    log(f"phase 9 bench: {rec['value'] / 1e6:.1f} M anchors/s (pipeline "
-        f"{rec['pipeline_ms']} ms host clock, {rec['pipeline_device_ms']} ms "
-        f"CUDA events), baseline {rec['baseline_host_native_1core'] / 1e6:.2f}"
-        f" M anchors/s; headline batch bit-exact against the plain version "
-        f"({plain_ms:.1f} ms); every pair row's SAM identical on both lanes "
-        f"({pairs}); the rows' largest inputs bit-exact: chain "
-        f"{sorted(chain)}, ksw2 and walk {sorted(ksw)}; launches {n}; "
-        f"bench {secs_bench:.1f} s, phase {secs:.1f} s")
-    return dict(launches=n, secs=secs, chain=chain, ksw=ksw)
-
-
 # --------------------------------------------------------------- phase 10
-# the presets of the JAX package (options.py:110-170) on phase 9's cached
-# 50 Mbp genome (the bench's cache): sr single-end reads, map-pb reads of
-# 10 kb (map10k is the same option set: a cut of them), an all-vs-all set
-# of about 20x over the genome's first 200 kb under ava-ont and ava-pb
-# (PAF; one cut with -c), and contigs of 20 kb at each asm preset's
+# the presets of the JAX package (options.py:110-170) on a 50 Mbp genome
+# (made by the phase's first run, then cached): sr single-end reads,
+# map-pb reads of 10 kb (map10k is the same option set: a cut of them), an
+# all-vs-all set of about 20x over the genome's first 200 kb under ava-ont
+# and ava-pb (PAF; one cut with -c), and contigs of 20 kb at each asm preset's
 # divergence. Each TorchRuntime run on the card at -t THREADS against
 # HostRuntime, and the option cases of tests/test_torch_options.py through
 # the port's CLI on a small genome, --device cuda against --device host.
@@ -3253,7 +3110,6 @@ def main() -> int:
         pe = run_phase("6", phase_paired, e2e["ref"])
         run_phase("7", phase_lanes, e2e, spl, pe)
         rest = run_phase("8", phase_rest, e2e)
-        bench9 = run_phase("9", phase_bench)
         p10 = run_phase("10", phase_presets)
         p11 = run_phase("11", phase_genome, p11_inputs)
         p12 = run_phase("12", phase_masked, p12_inputs, e2e["ref"])
@@ -3294,15 +3150,12 @@ def main() -> int:
         {"name": "chain_dp", "route": "cuda", "source": CHAIN_SOURCE,
          "replaces": CHAIN_REPLACES,
          "launches": e2e["launches"] + spl["chain"] + pe["chain"]
-         + rest["launches"] + bench9["launches"]["chain"] + n10["chain"]
-         + n11["chain"] + n12["chain"],
-         "launches_phase9": bench9["launches"]["chain"],
+         + rest["launches"] + n10["chain"] + n11["chain"] + n12["chain"],
          "launches_phase10": n10["chain"],
          "launches_phase11": n11["chain"],
          "launches_phase12": n12["chain"],
          "max_abs_err": max(worst, e2e["err"], spl["chain_err"],
                             pe["chain_err"], rest["meshes"]["res"]["err"],
-                            *(r["err"] for r in bench9["chain"].values()),
                             *(r["err"] for r in chain10.values()),
                             *(r["err"] for r in chain11.values()),
                             *(r["err"] for r in chain12.values())),
@@ -3313,7 +3166,6 @@ def main() -> int:
          "variant_ms": e2e["variant_ms"],
          "launches_by_form": {f: e2e["by_form"][f] + spl["chain_by_form"][f]
                               + pe["chain_by_form"][f] + rest["by_form"][f]
-                              + bench9["launches"][f]
                               for f in e2e["by_form"]},
          **_chain_fields("phase5", spl["chain_res"]["cdna"]),
          **_chain_fields("phase6", pe["chain_res"]["many_segs"]),
@@ -3321,10 +3173,6 @@ def main() -> int:
          **_chain_fields("bench", bench),
          **_chain_fields("phase11", p11["big"]),
          "anchors_per_s_bench": bench["anchors"] / bench["ms"] * 1e3,
-         "checks_phase9": {
-             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "form", "anchors")}
-             for k, r in bench9["chain"].items()},
          "checks_phase10": {
              k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "form", "anchors")}
@@ -3336,15 +3184,13 @@ def main() -> int:
              for k, r in chain12.items()}},
         {"name": "ksw2", "route": "cuda", "source": KSW_SOURCE,
          "replaces": KSW_REPLACES,
-         "launches": spl["ksw"] + pe["ksw"] + bench9["launches"]["ksw"]
-         + n10["ksw"] + n11["ksw"] + n12["ksw"],
-         "launches_phase9": bench9["launches"]["ksw"],
+         "launches": spl["ksw"] + pe["ksw"] + n10["ksw"] + n11["ksw"]
+         + n12["ksw"],
          "launches_phase10": n10["ksw"],
          "launches_phase11": n11["ksw"],
          "launches_phase12": n12["ksw"],
          "max_abs_err": max(err, *(r["err"] for r in [
-             *bench9["ksw"].values(), *ksw10.values(), *ksw11.values(),
-             *ksw12.values()])),
+             *ksw10.values(), *ksw11.values(), *ksw12.values()])),
          "ms": spl["ms"], "plain_ms": spl["plain_ms"],
          "bound_ms": spl["bound_ms"], "bound_by": spl["bound_by"],
          "library_ms": None, "step_ns": spl["step_ns"],
@@ -3355,10 +3201,6 @@ def main() -> int:
          "ms_phase6": pe["ms"], "bound_ms_phase6": pe["bound_ms"],
          "step_ns_phase6": pe["step_ns"],
          "variant_ms_phase6": pe["variant_ms"],
-         "checks_phase9": {
-             k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by")}
-             for k, r in bench9["ksw"].items()},
          "checks_phase10": {
              k: {f: r[f] for f in ("err", "ms", "plain_ms", "bound_ms",
                                    "bound_by")}
@@ -3372,15 +3214,13 @@ def main() -> int:
              for k, r in ksw12.items()}},
         {"name": "ksw2_walk", "route": "cuda", "source": KSW_SOURCE,
          "replaces": WALK_REPLACES,
-         "launches": spl["walk"] + pe["walk"] + bench9["launches"]["walk"]
-         + n10["walk"] + n11["walk"] + n12["walk"],
-         "launches_phase9": bench9["launches"]["walk"],
+         "launches": spl["walk"] + pe["walk"] + n10["walk"] + n11["walk"]
+         + n12["walk"],
          "launches_phase10": n10["walk"],
          "launches_phase11": n11["walk"],
          "launches_phase12": n12["walk"],
          "max_abs_err": max(err, *(r["err"] for r in [
-             *bench9["ksw"].values(), *ksw10.values(), *ksw11.values(),
-             *ksw12.values()])),
+             *ksw10.values(), *ksw11.values(), *ksw12.values()])),
          "ms": spl["walk_ms"],
          "plain_ms": spl["walk_plain_ms"],
          "bound_ms": spl["walk_bound_ms"],
@@ -3388,11 +3228,6 @@ def main() -> int:
          "step_ns": spl["walk_step_ns"], "ms_phase6": pe["walk_ms"],
          "bound_ms_phase6": pe["walk_bound_ms"],
          "step_ns_phase6": pe["walk_step_ns"],
-         "checks_phase9": {k: {"err": r["err"], "ms": r["walk_ms"],
-                               "plain_ms": r["walk_plain_ms"],
-                               "bound_ms": r["walk_bound_ms"],
-                               "bound_by": r["walk_bound_by"]}
-                           for k, r in bench9["ksw"].items()},
          "checks_phase10": {k: {"err": r["err"], "ms": r["walk_ms"],
                                 "plain_ms": r["walk_plain_ms"],
                                 "bound_ms": r["walk_bound_ms"],

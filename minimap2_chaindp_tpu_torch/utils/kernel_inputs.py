@@ -1,31 +1,31 @@
-"""The largest input each kernel wrapper took in a run, kept so that the
-kernels can be held against their plain versions on it afterwards, in
-another process (chip_smoke.py does so for the bench's end-to-end rows and
-its flow row, each of which runs in a process of its own).
+"""The largest input each kernel wrapper takes while a block of mapping
+runs, kept in memory so that the kernels can be held against their plain
+versions on it afterwards, in the same process (chip_smoke.py does so in
+its phases 10-12):
 
     with kernel_inputs.record() as rec:
         ...                         # mapping runs on the card
-    rec.save(directory)             # chain_<mode>.pt, ksw.pt
-    kernel_inputs.load(directory, "cuda")
+    rec.chain["single"]             # (slots, args, kw) of the largest input
+    rec.ksw                         # (cells, jobs, splice, noncan)
 
 `record()` wraps the chain wrapper where the runtime's paths call it
 (models/device_flow, models/runtime, models/device_pipeline) and keeps, by
 mode (single, many_segs, cdna), the input with the most anchor slots; it
 wraps ops/ksw2_ext.pack_jobs and _batch_async and keeps the extension
-launch with the most DP cells: its jobs, mode and the forward wrapper's
-scoring; and, apart (`ksw_n`, in memory only: save() writes the other
-two), the launch with the most DP cells among those holding base code 4
-(an N, or an IUPAC code as seq_nt4_table reads it) in a query or target.
-The wrappers themselves and their launch counts are untouched.
+launch with the most DP cells (its jobs and mode; `rec.scoring[splice]`
+the forward wrapper's scoring for that mode) and, apart in `rec.ksw_n`,
+the launch with the most DP cells among those holding base code 4 (an N,
+or an IUPAC code as seq_nt4_table reads it) in a query or target. Calls
+from several threads (map_stream's two batch threads) are kept under one
+lock. The wrappers themselves and their launch counts are untouched, and
+the block's exit, by an exception too, puts the originals back.
 """
 from __future__ import annotations
 
 import contextlib
-import os
 import threading
 
 import numpy as np
-import torch
 
 
 def chain_mode(kw) -> str:
@@ -40,23 +40,6 @@ class Recorder:
         self.ksw_n = None                   # the same, with a code 4
         self.scoring: dict[bool, tuple] = {}   # splice -> forward scoring
         self._lock = threading.Lock()
-
-    def save(self, directory: str) -> list[str]:
-        """Write what was kept as CPU tensors under `directory`; returns
-        the names written."""
-        os.makedirs(directory, exist_ok=True)
-        names = []
-        for mode, (_slots, args, kw) in sorted(self.chain.items()):
-            torch.save(dict(args=[a.cpu() for a in args], kw=kw),
-                       os.path.join(directory, f"chain_{mode}.pt"))
-            names.append(f"chain_{mode}")
-        if self.ksw is not None:
-            _cells, jobs, splice, noncan = self.ksw
-            torch.save(dict(jobs=jobs, splice=splice, noncan=noncan,
-                            scoring=self.scoring[splice]),
-                       os.path.join(directory, "ksw.pt"))
-            names.append("ksw")
-        return names
 
 
 @contextlib.contextmanager
@@ -108,16 +91,3 @@ def record():
             m.chain_scores_batch = real_chain[m]
         ksw2_ext.pack_jobs, ksw2_ext._batch_async = real_pack, real_batch
 
-
-def load(directory: str, device) -> dict:
-    """What save() wrote: {"chain_<mode>": (args on `device`, kw), "ksw":
-    dict(jobs, splice, noncan, scoring)}."""
-    out = {}
-    for name in sorted(os.listdir(directory)):
-        if not name.endswith(".pt"):
-            continue
-        d = torch.load(os.path.join(directory, name), weights_only=False)
-        if name.startswith("chain_"):
-            d = ([a.to(device) for a in d["args"]], d["kw"])
-        out[name[:-3]] = d
-    return out

@@ -1,7 +1,7 @@
 """The port's fused flow (CPU, plain versions) against the JAX package's
 DeviceFlow in interpret mode, in the pattern of tests/test_mesh_e2e.py:34-80
 on a synthetic genome: the same units handled, identical Chains and
-SeedHits. Then TorchRuntime against HostRuntime on a batch that mixes
+SeedHits, the same buckets. Then TorchRuntime against HostRuntime on a batch that mixes
 single- and two-segment fragments: byte-identical lines in input order,
 the two-segment fragments through the staged path."""
 import copy
@@ -51,7 +51,9 @@ def units_of(mi, mo, recs):
 
 
 def test_flow_matches_jax_flow(mapped):
+    from minimap2_chaindp_tpu.models import device_flow as JDF
     from minimap2_chaindp_tpu.models.device_flow import DeviceFlow as JFlow
+    from minimap2_chaindp_tpu.ops import chain_pallas as JCP
     mi, mo, recs = mapped
     u1 = units_of(mi, mo, recs)
     r1, _cold = JFlow(mi, mo, interpret=True).run(u1, Timers())
@@ -71,6 +73,28 @@ def test_flow_matches_jax_flow(mapped):
             assert np.array_equal(sh1.anchors, sh2.anchors)
             assert sh1.rep_len == sh2.rep_len
             assert np.array_equal(sh1.mini_pos, sh2.mini_pos)
+    # the buckets the flow groups the reads into, each row's slope and
+    # exceptions: the JAX flow's rule (its run(), through the JAX
+    # package's own functions) on the same units
+    u3, want = units_of(mi, mo, recs), {}
+    for k, (_segs, info) in enumerate(u3):
+        if not 0 < len(info.mv) <= JDF.M_BUCKETS[-1]:
+            continue
+        n, span_sum, *_ = JDF.host_seed_stats(mi, info.mv, mo.mid_occ)
+        if not 0 < n <= JDF.CAP_BUCKETS[-1]:
+            continue
+        avg = np.float32(span_sum) / np.float32(n)
+        w1, excl = JCP.clin_slope_exc(avg)
+        if avg < 1.6 or excl is None:
+            continue
+        key = (next(m for m in JDF.M_BUCKETS if len(info.mv) <= m),
+               next(c for c in JDF.CAP_BUCKETS if n <= c),
+               info.gap_qry, info.gap_ref)
+        want.setdefault(key, []).append((k, w1, excl))
+    _res, _stats, got = DeviceFlow(mi, mo, device="cpu").buckets(u3)
+    assert sum(map(len, want.values())) >= 0.8 * len(recs)
+    assert [((q["qpos"].shape[1], kw["cap"], kw["gq"], kw["gr"]), entries)
+            for entries, q, kw in got] == sorted(want.items())
 
 
 def test_runtime_matches_host_runtime(mapped):

@@ -14,7 +14,6 @@ DATA = os.path.join(ROOT, "tests", "data")
 PORT_MODULES = (
     "minimap2_chaindp_tpu_torch",
     "minimap2_chaindp_tpu_torch.align",
-    "minimap2_chaindp_tpu_torch.bench",
     "minimap2_chaindp_tpu_torch.cli",
     "minimap2_chaindp_tpu_torch.constants",
     "minimap2_chaindp_tpu_torch.entry",
@@ -52,8 +51,6 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.parallel.mesh",
     "minimap2_chaindp_tpu_torch.pe",
     "minimap2_chaindp_tpu_torch.sdust",
-    "minimap2_chaindp_tpu_torch.tools.e2e_bench",
-    "minimap2_chaindp_tpu_torch.tools.flow_projection",
     "minimap2_chaindp_tpu_torch.tools.genome_scale",
     "minimap2_chaindp_tpu_torch.tools.paftools",
     "minimap2_chaindp_tpu_torch.utils.chain_corpus",
@@ -61,10 +58,8 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.utils.genome_synth",
     "minimap2_chaindp_tpu_torch.utils.kernel_inputs",
     "minimap2_chaindp_tpu_torch.utils.ksw_sweep",
-    "minimap2_chaindp_tpu_torch.utils.mesh_sweep",
     "minimap2_chaindp_tpu_torch.utils.mlog",
     "minimap2_chaindp_tpu_torch.utils.prefetch",
-    "minimap2_chaindp_tpu_torch.utils.route_sweep",
     "minimap2_chaindp_tpu_torch.utils.synth",
     "minimap2_chaindp_tpu_torch.utils.timers",
     "minimap2_chaindp_tpu_torch.utils.trace",
