@@ -42,7 +42,8 @@ holds a batch's `seed` (`sketch`, `seed_hits`), `flow` (the fused flow:
 `bottom` and `seed` > `flow_seed_hits`), `kernel` (`chain_upload`,
 `chain_launch`, `device_wait`), `pack`, `bottom`, `host_chain`, `align`
 (`native_finish`, the flow's reads' native finish; `staged_align`, whose
-rounds are `skeleton` spans beside the executor's `ext_wave` with
+rounds are `skeleton` spans, the staged units' native passes or the align
+generators' advances, beside the executor's `ext_wave` with
 `ext_pack`, `ext_upload`, `ext_launch`, `device_wait`, `ext_decode`, and
 `ext_native`, `ext_host`) and `epilogue`; `feed_wait` is the wait for
 the next input batch; the stealing lane's chunks are `steal_prep`,
@@ -56,7 +57,11 @@ anchor) + `flow_out_minimizers`, `flow_out_anchors`, `flow_out_shard`,
 `flow_out_qspan`, `flow_out_exc`, `flow_out_flag` (each reason a unit
 leaves it for the staged path) + `device_reads`; `native_finish_bases`
 and `native_finish_declined` are the query bases the native finish
-finished and the reads it declined.
+finished and the reads it declined. The staged path's native finish
+(models/replay.py) counts `replay_units` (staged units it finished),
+`replay_declined` (staged units left to the align generators),
+`replay_rounds` (its passes, one a round) and `replay_jobs` (the extension
+jobs its passes recorded).
 Follows minimap2_chaindp_tpu/cli.py:_main (:334-658) without the JAX
 compile cache, the link probe and deferred device init.
 """

@@ -13,8 +13,11 @@ Port of the single-chip path of minimap2_chaindp_tpu/models/runtime.py
   declines) takes the staged path: seed collection (on the host, or by key
   on the card with `device_seeds`), the chain kernel over size buckets
   (`_chain_batch`; units of at most `native_chain_max` anchors chain on the
-  host), then the extension waves of all in-flight reads through
-  `run_scheduler` into the CUDA ksw2 kernels (models/batch_align.py, jobs
+  host), then each unit's back half (regions, alignment, mapq, pairing):
+  the native driver's from the chains where the options have a CIGAR,
+  dual-affine scoring and no splicing (models/replay.py), the align
+  generators under `run_scheduler` otherwise, their extension jobs as
+  waves into the CUDA ksw2 kernels either way (models/batch_align.py, jobs
   of at most `native_ext_max` bases on host SIMD), and the SAM/PAF text.
 
 The routing decides which fragments take them (the environment names are
@@ -61,6 +64,7 @@ from .batch_align import CudaAlignExecutor, run_scheduler
 from .device_flow import CAP_BUCKETS, M_BUCKETS, DeviceFlow, flow_mode_ok
 from .pipeline import (finish_unit_gen, format_frag, host_chain,
                        map_fragment_output, prepare_frag, seed_unit)
+from .replay import ReplayFinish
 from .steal import BASE_NICE, HOST_CH, thread_nice
 
 # staged chain buckets: a unit takes the smallest that holds its anchors
@@ -168,6 +172,7 @@ class TorchRuntime:
                                             device=self.device,
                                             timers=self.timers,
                                             native_max=self.native_ext_max)
+        self._replay = ReplayFinish(mi, opt, self.align_exec)
 
     def close(self) -> None:
         """Wait for a flow build still running on its own thread, stop the
@@ -453,10 +458,8 @@ class TorchRuntime:
                 if k in flow_chains})
             with self.timers.time("align"), \
                     self.timers.time("staged_align"):
-                gens = [finish_unit_gen(mi, self._opt_staged, info, ch)
-                        for (_u, info), ch in zip(pending, chains)]
-                regs = dict(zip(staged, run_scheduler(gens,
-                                                      self.align_exec)))
+                regs = dict(zip(staged, self._finish_staged(pending,
+                                                            chains)))
         with self.timers.time("epilogue"):
             for fi, meta in enumerate(frag_meta):
                 if fi in host_futs:
@@ -476,6 +479,24 @@ class TorchRuntime:
                     lines[fi] = format_frag(mi, opt, segs, work, flipped,
                                             regss, rg_id)
         return lines
+
+    def _finish_staged(self, pending, chains) -> list:
+        """Each staged unit's per-segment regions: the native finish from
+        the chains where the run's options take it (models/replay.py),
+        the align generators under run_scheduler for the rest. Counts
+        replay_units and replay_declined."""
+        out = self._replay.run(pending, chains) if self._replay.takes() \
+            else [None] * len(pending)
+        left = [i for i, r in enumerate(out) if r is None]
+        if len(pending) > len(left):
+            self.timers.count("replay_units", len(pending) - len(left))
+        if left:
+            self.timers.count("replay_declined", len(left))
+            gens = [finish_unit_gen(self.mi, self._opt_staged,
+                                    pending[i][1], chains[i]) for i in left]
+            for i, r in zip(left, run_scheduler(gens, self.align_exec)):
+                out[i] = r
+        return out
 
     def _seed_hits(self, units) -> None:
         """Fill UnitInfo.sh for units the flow left without anchors: by key

@@ -289,6 +289,16 @@ def _stepper(dev):
     return run
 
 
+def _release_graphs(dev) -> None:
+    """Give a finished stepper's graph pool back to the card. Its blocks
+    stay cached once its last graph is gone, and a later capture cannot
+    free them (no cudaFree while a stream captures), so the plain runs of
+    one process would pile their pools up until a capture runs out of
+    memory."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
                     p_bytes, t_total, band_max, rows_max):
     """Plain PyTorch version of the forward kernel on any device: a loop
@@ -553,6 +563,8 @@ def ksw_forward_ref(tseq, qrev, dac, meta, poff, *, scoring, splice,
             nl = n
         k = lanes[:, :band[r0]]
         run(row, count)
+    del run
+    _release_graphs(dev)
 
     emit(0, nl)
     ez_out = torch.empty_like(ez)
@@ -647,6 +659,8 @@ def ksw_walk_ref(p, poff, meta, ez, *, splice, ops_total):
                                 state, kk))
             nl = n
         run(step, count)
+    del run
+    _release_graphs(dev)
     fin_i[:nl], fin_j[:nl], fin_k[:nl] = i, j, kk
     for c, val in ((C_FIN_I, fin_i), (C_FIN_J, fin_j), (C_FIN_K, fin_k)):
         ez[perm, c] = val.to(ez.dtype)     # (-1, -1, 0) where no walk

@@ -9,7 +9,8 @@ kernel against its plain version
 (donor_acceptor job by job), exts2 waves on phase 3's N corpus against
 the plain versions and the native host library, and TorchRuntime on cuda
 against the port's HostRuntime (byte-identical lines) under map-ont and
--x splice, and under the stealing routing from map_stream's two batch
+-x splice, the staged path's native finish against the align generators
+and HostRuntime on sr pairs, and under the stealing routing from map_stream's two batch
 threads; the device index build,
 entry(), a 1 x 1 nccl mesh, and meshes of two ranks on one card over gloo
 (1 x 2, 2 x 1); the regimes of the presets: the chain launches of
@@ -171,6 +172,60 @@ def test_runtime_on_card_matches_host(cuda, tmp_path):
     card = f"cuda:{torch.cuda.current_device()}"
     assert TS.device_index_cached(mi, "cuda") is \
         TS.device_index_cached(mi, card)
+
+
+def test_replay_on_card_matches_generators(cuda, tmp_path):
+    """The staged path's native finish on the card: sr pairs (2%
+    substitutions, a fifth of them with a 1-10 base indel), the ksw2
+    kernels answering the units' job tables, against the align generators
+    on the same batch and against HostRuntime (byte-identical lines);
+    every unit replayed, every recorded job run by the executor, most on
+    the card, in no more extension waves than the generators take."""
+    import numpy as np
+    from minimap2_chaindp_tpu_torch import constants as C
+    from minimap2_chaindp_tpu_torch.index.build import build_index
+    from minimap2_chaindp_tpu_torch.io.fastx import (SeqRecord, read_fastx,
+                                                     read_frags)
+    from minimap2_chaindp_tpu_torch.models.host_runtime import HostRuntime
+    from minimap2_chaindp_tpu_torch.models.runtime import TorchRuntime
+    from minimap2_chaindp_tpu_torch.options import set_opt
+    from minimap2_chaindp_tpu_torch.utils import genome_synth as G
+    ref, p1, p2 = (str(tmp_path / n) for n in ("g.fa", "r1.fq", "r2.fq"))
+    G.make_genome(ref, n_contigs=4, contig_len=500_000, seed=61)
+    G.simulate_pairs(ref, p1, p2, 3000, seed=63, err=0.02)
+    io, mo = set_opt("sr")
+    mo.flag |= C.MM_F_OUT_SAM | C.MM_F_CIGAR
+    recs = list(read_fastx(ref))
+    mi = build_index([r.name for r in recs], [r.seq for r in recs],
+                     io.w, io.k, io.flag, io.bucket_bits)
+    mo.update(mi)
+    frags = [f for b in read_frags([p1, p2], 10**9, True) for f in b]
+    rng = np.random.default_rng(65)
+    for f in frags[::5]:
+        s = f.segs[0]
+        p, n = int(rng.integers(40, 110)), int(rng.integers(1, 11))
+        f.segs[0] = SeqRecord(s.name, s.seq[:p] + s.seq[p + n:], s.qual[n:],
+                              s.comment)
+    want = HostRuntime(mi, mo).map_batch(frags)
+    runs = {}
+    for replay in (True, False):
+        rt = TorchRuntime(mi, mo, device=cuda)
+        if not replay:
+            rt._replay.takes = lambda: False
+        waves = []
+        run = rt.align_exec.run
+        rt.align_exec.run = lambda jobs, run=run, waves=waves: \
+            waves.append(len(jobs)) or run(jobs)
+        runs[replay] = (rt.map_batch(frags), dict(rt.timers.counters),
+                        waves)
+    got, c, waves = runs[True]
+    assert got == want == runs[False][0]
+    assert c["replay_units"] == c["staged_frags"] == len(frags)
+    assert "replay_declined" not in c
+    assert c["replay_jobs"] == sum(waves) == c["ext_device"] + c.get(
+        "ext_native", 0) + c.get("ext_host", 0)
+    assert c["ext_device"] > 0.9 * c["replay_jobs"]
+    assert len(waves) <= len(runs[False][2])
 
 
 def test_ksw_kernels_match_ref_on_card(cuda):

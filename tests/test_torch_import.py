@@ -32,6 +32,7 @@ PORT_MODULES = (
     "minimap2_chaindp_tpu_torch.models.device_pipeline",
     "minimap2_chaindp_tpu_torch.models.host_runtime",
     "minimap2_chaindp_tpu_torch.models.pipeline",
+    "minimap2_chaindp_tpu_torch.models.replay",
     "minimap2_chaindp_tpu_torch.models.runtime",
     "minimap2_chaindp_tpu_torch.models.steal",
     "minimap2_chaindp_tpu_torch.native",
